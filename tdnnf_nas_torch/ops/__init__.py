@@ -1,0 +1,6 @@
+"""Device ops: forward-backward, spliced linear, semi-orthogonal step."""
+from tdnnf_nas_torch.ops.fwdbwd import (BlockedDenGraph, forward_score_blocked,
+                                        forward_score_linear)
+from tdnnf_nas_torch.ops.semiorth import (semi_orthogonal_step,
+                                          semi_orthogonal_step_3d)
+from tdnnf_nas_torch.ops.tdnn import splice, spliced_linear

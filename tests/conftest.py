@@ -17,3 +17,8 @@ os.environ.setdefault("JAX_ENABLE_X64", "0")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
