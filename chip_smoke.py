@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tdnnf_nas_torch``) on one NVIDIA GPU.
 
-Drives the port's main path, a few LF-MMI training steps of the flagship
-TDNN-F 7q model (18,751,248 params, random seeded weights) against the
-production 4-gram x left-2 triphone blocked denominator (10,271 states,
-6,034 pdfs) on 64 x 150-frame chunks, and checks the hand-written CUDA
-kernels of that path against their plain PyTorch versions.  Phases, each
-raising on failure:
+Drives the port's two training paths, a few LF-MMI steps each of the
+flagship TDNN-F 7q model (random seeded weights) on 64 x 150-frame
+chunks: against the production 4-gram x left-2 triphone blocked
+denominator (10,271 states, 6,034 pdfs, 18,751,248 params), and against
+the bigram x left-biphone dense denominator (2,208 states, 2,208 pdfs,
+16,784,684 params).  Checks the hand-written CUDA kernels of both paths
+against their plain PyTorch versions.  Phases, each raising on failure:
 
-  0. build the kernels from ``tdnnf_nas_torch/csrc`` (nvcc, sm_90a);
+  0. build both kernel libraries from ``tdnnf_nas_torch/csrc`` (one nvcc
+     per source, started together, sm_90a);
   1. flagship host setup (the ``bench.py`` setup, through the port's own
      numpy host modules): 10,271 den states, 18,751,248 params;
   2. kernel vs plain at the flagship den shape, float32 and bf16 obs,
@@ -17,7 +19,13 @@ raising on failure:
      ``den_obs_bf16``; objf finite at every step, both kernels launched
      once per step; ms/step;
   4. one float32 step through the kernels against the same step through
-     the plain den, from the same state.
+     the plain den, from the same state;
+  5. the dense biphone flagship on phase 1's corpus: host setup (2,208
+     den states and pdfs, 16,784,684 params); dense-den kernels vs plain
+     at B=64, T=50, S=2,208 in float32, with timings; launch counters
+     reset, then 6 bf16 steps with the default objective config (objf
+     and grad_norm finite, both kernels launched once per step, ms/step);
+     one float32 kernel step against the same step through the plain den.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line
@@ -70,6 +78,183 @@ def _check(ok: bool, what: str) -> None:
         raise RuntimeError(f"smoke check failed: {what}")
 
 
+def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
+    """Phase 5, the dense biphone flagship; returns its two kernel rows."""
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.data import batch_iterator
+    from tdnnf_nas_torch.graphs import BiphoneTree
+    from tdnnf_nas_torch.models import TdnnfModelConfig, count_params
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
+    from tdnnf_nas_torch.ops.fwdbwd import _MIN_LOG_OBS, DenGraphArrays
+    from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
+    from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
+                                       TrainerConfig, init_train_state,
+                                       make_train_step)
+
+    # ---- 5.1 host setup (bench.py:290-299) ----
+    t0 = time.perf_counter()
+    batch_size, chunk_width, num_phones = 64, 50, 46
+    tree = BiphoneTree(num_phones, num_leaves=6034 - num_phones)
+    bundle = prepare_data(utts, phone_seqs, tree, topo, num_phones)
+    model_cfg = TdnnfModelConfig(num_pdfs=tree.num_pdfs)
+    chunks = bundle.egs(model_cfg, chunk_width=chunk_width,
+                        max_phones_per_chunk=40)
+    host_batches = []
+    for b in batch_iterator(chunks, batch_size=batch_size,
+                            rng=np.random.RandomState(0), drop_last=False):
+        if len(host_batches) >= 6 or b["feats"].shape[0] != batch_size:
+            break
+        b["ivectors"] = iv_rng.randn(batch_size, model_cfg.ivector_dim
+                                     ).astype(np.float32)
+        host_batches.append(b)
+    print(f"[dense setup] {time.perf_counter() - t0:.1f} s: "
+          f"pdfs={tree.num_pdfs} den_states={bundle.den.num_states} "
+          f"chunks={len(chunks)} batches={len(host_batches)}", flush=True)
+    _check(bundle.den.num_states == 2208, "2,208 dense den states")
+    _check(tree.num_pdfs == 2208, "2,208 biphone pdfs")
+    _check(bundle.den_fsa is None, "the dense (non-composed) branch")
+    _check(len(host_batches) == 6, "6 full batches")
+    g = DenGraphArrays.from_graph(bundle.den, dev)
+    batches = [convert.batch_to_torch(b, dev) for b in host_batches]
+
+    # ---- 5.2 kernel vs plain at B=64, T=50, S=2,208, float32 ----
+    # Tolerances as in phase 2: the kernels sum in another order than
+    # cuBLAS and torch (no atomics: runs repeat bit for bit); logZ sums 50
+    # per-frame log-scales of ~1e-6 relative error each: |dlogZ| <= 1e-3;
+    # the log-obs gradient within 1e-3 of its largest entry.
+    rng = np.random.RandomState(5)
+    logits = torch.tensor(rng.randn(batch_size, chunk_width, tree.num_pdfs)
+                          .astype(np.float32) * 2.0, device=dev)
+    obs = torch.clamp(logits - logits.amax(-1, keepdim=True),
+                      min=_MIN_LOG_OBS).index_select(-1, g.state_pdf)
+    obs = obs.contiguous()
+    gbar = torch.tensor(rng.rand(batch_size).astype(np.float32) + 0.5,
+                        device=dev)
+    leaky = 0.1
+    z_k, al_k, cs_k = ddc.dense_den_fwd_cuda(obs, g.trans, g.init, g.final,
+                                             leaky)
+    gr_k = ddc.dense_den_bwd_cuda(obs, g.trans_T, g.final, al_k, cs_k, gbar)
+    z_k2, al_k2, cs_k2 = ddc.dense_den_fwd_cuda(obs, g.trans, g.init,
+                                                g.final, leaky)
+    gr_k2 = ddc.dense_den_bwd_cuda(obs, g.trans_T, g.final, al_k2, cs_k2,
+                                   gbar)
+    z_p, al_p, cs_p = ddc.dense_scan_fwd_plain(obs, g.trans, g.init, g.final,
+                                               leaky)
+    gr_p = ddc.dense_scan_bwd_plain(obs, g.trans_T, g.final, al_p, cs_p, gbar)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(z_k).all() and torch.isfinite(gr_k).all()),
+           "finite dense kernel outputs")
+    _check(bool(torch.equal(z_k, z_k2) and torch.equal(al_k, al_k2)
+                and torch.equal(gr_k, gr_k2)),
+           "dense kernel runs repeat bit for bit")
+    err_z = float((z_k - z_p).abs().max())
+    err_g = float((gr_k - gr_p).abs().max())
+    gmax = float(gr_p.abs().max())
+    err_a = float((al_k - al_p).abs().max())
+    print(f"[dense kernel-vs-plain f32] logZ max|err|={err_z:.3e} (tol 1e-3, "
+          f"|logZ|~{float(z_p.abs().mean()):.1f}); alphas max|err|="
+          f"{err_a:.3e}; grad max|err|={err_g:.3e} (tol 1e-3 x max|grad|="
+          f"{gmax:.3e})", flush=True)
+    _check(err_z <= 1e-3, "dense logZ within 1e-3")
+    _check(err_g <= 1e-3 * max(gmax, 1.0), "dense grad within tol")
+    times = {
+        "fwd": _cuda_ms(torch, lambda: ddc.dense_den_fwd_cuda(
+            obs, g.trans, g.init, g.final, leaky)),
+        "fwd_plain": _cuda_ms(torch, lambda: ddc.dense_scan_fwd_plain(
+            obs, g.trans, g.init, g.final, leaky)),
+        "bwd": _cuda_ms(torch, lambda: ddc.dense_den_bwd_cuda(
+            obs, g.trans_T, g.final, al_k, cs_k, gbar)),
+        "bwd_plain": _cuda_ms(torch, lambda: ddc.dense_scan_bwd_plain(
+            obs, g.trans_T, g.final, al_p, cs_p, gbar)),
+    }
+    print(f"[dense den timing, f32, B={batch_size} T={chunk_width} "
+          f"S={g.trans.shape[0]}] fwd kernel {times['fwd']:.3f} ms vs plain "
+          f"{times['fwd_plain']:.3f} ms; bwd kernel {times['bwd']:.3f} ms vs "
+          f"plain {times['bwd_plain']:.3f} ms ({gpu})", flush=True)
+    del al_k, al_k2, al_p, gr_k, gr_k2, gr_p, logits
+
+    # ---- 5.3 training: the dense main path (a dense den always takes
+    # the kernels; the default config shows no switch is needed) ----
+    trainer_cfg = TrainerConfig(
+        objective=ChainObjectiveConfig(),
+        optimizer=OptimizerConfig(kind="adam", lr_initial=1e-3,
+                                  lr_final=1e-4, num_steps=100000))
+    state = init_train_state(model_cfg, trainer_cfg,
+                             torch.Generator().manual_seed(0), dev)
+    n_params = count_params(state.params)
+    print(f"[dense model] params={n_params:,}", flush=True)
+    _check(n_params == 16_784_684, "16,784,684 params")
+    step = make_train_step(model_cfg, trainer_cfg, g)
+    ddc.dense_den_fwd_cuda.launches = 0
+    ddc.dense_den_bwd_cuda.launches = 0
+    ms = []
+    n_warm, n_timed = 2, 4
+    for i in range(n_warm + n_timed):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        ms.append(m)
+        _check(ddc.dense_den_fwd_cuda.launches == i + 1
+               and ddc.dense_den_bwd_cuda.launches == i + 1,
+               "one launch of each dense kernel per step")
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    launches = {"fwd": ddc.dense_den_fwd_cuda.launches,
+                "bwd": ddc.dense_den_bwd_cuda.launches}
+    objfs = [float(m["objf_mmi"]) for m in ms]
+    print("[dense train] objf_mmi per step: "
+          + " ".join(f"{v:.4f}" for v in objfs), flush=True)
+    _check(all(np.isfinite(objfs)), "dense objf_mmi finite at every step")
+    _check(all(np.isfinite(float(m["grad_norm"])) for m in ms),
+           "dense grad_norm finite at every step")
+    print(f"[dense train] {dt * 1e3:.2f} ms/step over {n_timed} steps "
+          f"(bf16, B={batch_size}x150 frames) = "
+          f"{batch_size * chunk_width * 3 * 0.010 / dt:.1f} audio-s/s; "
+          f"launches fwd={launches['fwd']} bwd={launches['bwd']} ({gpu})",
+          flush=True)
+    del state, step
+
+    # ---- 5.4 kernel step vs plain step, float32 ----
+    f32_cfg = model_cfg.replace(compute_dtype="float32")
+    st0 = init_train_state(f32_cfg, trainer_cfg,
+                           torch.Generator().manual_seed(1), dev)
+    step32 = make_train_step(f32_cfg, trainer_cfg, g)
+    _, m_k = step32(copy.deepcopy(st0), batches[0])
+    n_before = (ddc.dense_den_fwd_cuda.launches,
+                ddc.dense_den_bwd_cuda.launches)
+    plain = lambda device: (ddc.dense_scan_fwd_plain,
+                            ddc.dense_scan_bwd_plain)
+    with mock.patch.object(ddc, "_scan_impl", plain):
+        _, m_p = step32(copy.deepcopy(st0), batches[0])
+    torch.cuda.synchronize()
+    _check(n_before == (ddc.dense_den_fwd_cuda.launches,
+                        ddc.dense_den_bwd_cuda.launches),
+           "the plain dense step launched no kernel")
+    d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
+    d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
+    print(f"[dense f32 step] objf_mmi kernel={float(m_k['objf_mmi']):.9g} "
+          f"plain={float(m_p['objf_mmi']):.9g} |d|={d_objf:.2e} (tol 1e-4); "
+          f"grad_norm kernel={float(m_k['grad_norm']):.9g} "
+          f"plain={float(m_p['grad_norm']):.9g} |d|={d_gn:.2e} "
+          f"(tol 1e-3 relative)", flush=True)
+    _check(d_objf <= 1e-4, "dense f32 objf kernel vs plain")
+    _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
+           "dense f32 grad_norm kernel vs plain")
+
+    src = "tdnnf_nas_torch/csrc/dense_den.cu"
+    return [
+        {"name": "dense_den_fwd", "route": "cuda", "source": src,
+         "replaces": f"{_TPU_KERNELS}:74", "launches": launches["fwd"],
+         "max_abs_err": err_z, "ms": times["fwd"],
+         "plain_ms": times["fwd_plain"]},
+        {"name": "dense_den_bwd", "route": "cuda", "source": src,
+         "replaces": f"{_TPU_KERNELS}:110", "launches": launches["bwd"],
+         "max_abs_err": err_g, "ms": times["bwd"],
+         "plain_ms": times["bwd_plain"]},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -84,6 +269,8 @@ def main() -> int:
                                         build_clustered_triphone_tree)
     from tdnnf_nas_torch.models import TdnnfModelConfig, count_params
     from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.ops import cuda_build
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
     from tdnnf_nas_torch.ops.fwdbwd import _MIN_LOG_OBS, BlockedDenGraph
     from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
     from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
@@ -99,9 +286,11 @@ def main() -> int:
 
     # ---- 0. build ----
     t0 = time.perf_counter()
-    so = bdc.build()
-    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    sos = cuda_build.build()
+    bdc._library()
+    ddc._library()
+    print(f"[build] {', '.join(so.name for so in sos)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 1. flagship host setup (bench.py:113-157) ----
     t0 = time.perf_counter()
@@ -283,6 +472,9 @@ def main() -> int:
     _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
            "f32 grad_norm kernel vs plain")
 
+    del state, st0, step, step32, batches, g
+    dense = _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng)
+
     kernels = [
         {"name": "blocked_den_fwd", "route": "cuda",
          "source": "tdnnf_nas_torch/csrc/blocked_den.cu",
@@ -294,7 +486,7 @@ def main() -> int:
          "replaces": f"{_TPU_KERNELS}:343", "launches": launches["bwd"],
          "max_abs_err": errs["bwd"], "ms": times["bwd"],
          "plain_ms": times["bwd_plain"]},
-    ]
+    ] + dense
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

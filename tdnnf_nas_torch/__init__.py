@@ -2,7 +2,8 @@
 
 Sub-packages mirror the JAX package.  Host-side graph, LM, tree and egs
 code is carried as numpy copies (the JAX package's host modules import
-``jax`` on the way); the device side is PyTorch, with the blocked
-denominator scan as hand-written CUDA kernels (``csrc/``) built with
-``nvcc`` at first use.  This package never imports ``jax``.
+``jax`` on the way); the device side is PyTorch, with the blocked and the
+dense denominator scans as hand-written CUDA kernels (``csrc/``) built
+with ``nvcc`` at first use (``ops/cuda_build.py``).  This package never
+imports ``jax``.
 """

@@ -73,6 +73,7 @@ def make_egs(
     topo: ChainTopology,
     tree,
     cfg: EgsConfig,
+    den_init_fn=None,
     den_fsa=None,
     stats: Optional[dict] = None,
     ivectors=None,
@@ -81,8 +82,10 @@ def make_egs(
     .phones, .begins, .ends at output rate) into supervised chunks.
 
     ``den_fsa`` (a graphs.den_graph.CompiledDenFsa) supplies numerator init
-    probs at arbitrary LM order / tree context; without it numerator init
-    is uniform over the allowed start states.
+    probs at arbitrary LM order / tree context (overrides den_init_fn);
+    ``den_init_fn`` (``graphs.den_graph.den_init_lookup`` of a dense den
+    graph) supplies them for the bigram den.  Without either, numerator
+    init is uniform over the allowed start states.
     ``stats``, if given, is filled in-place with chunk-coverage counters —
     in particular how much supervision the max_phones_per_chunk cap drops
     (Kaldi's get_egs.sh logs the same discard accounting).
@@ -162,7 +165,8 @@ def make_egs(
                 if utt_init is not None else None)
             sup = make_chunk_supervision(
                 ph, b.tolist(), e.tolist(), lm, topo, tree, w, cfg.max_states,
-                tol=cfg.tolerance, den_init_seq=den_init_seq,
+                tol=cfg.tolerance, den_init_fn=den_init_fn,
+                den_init_seq=den_init_seq,
                 init_ctx=ctxs[i0], init_left=lefts[i0],
             )
             in_start = c * fs  # padded coords: original frame c*fs - left + left

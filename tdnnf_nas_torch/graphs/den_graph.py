@@ -1,13 +1,18 @@
-"""Numpy copy of ``tdnnf_nas_tpu.graphs.den_graph`` (composed den FSA).
+"""Numpy copy of ``tdnnf_nas_tpu.graphs.den_graph`` (denominator graphs).
 
-Equivalent of Kaldi's ``chain-make-den-fst``: phone LM x chain topology x
-left-context tree composed into the factored state-emitting denominator
-FSA (``compile_denominator_fsa``), and its superblocked export
-(``CompiledDenFsa.to_blocked``) for the blocked denominator scan of
-``ops/fwdbwd.py``.  The export is host numpy; the device copy is
-``ops.fwdbwd.BlockedDenGraph.from_host``.  Not ported yet: the committed
-+-1 composition, ``to_factored``, ``to_state_graph`` and the dense
-biphone builder.
+Equivalent of Kaldi's ``chain-make-den-fst``, in two forms:
+
+* dense (bigram LM x chain topology x CI or left-biphone tree):
+  ``build_denominator_graph`` returns a ``graphs.fsa.StateGraph`` whose
+  device copy is ``ops.fwdbwd.DenGraphArrays.from_graph``;
+  ``den_init_lookup`` maps numerator states to its initial probs;
+* composed (n-gram LM x topology x left-context tree):
+  ``compile_denominator_fsa`` builds the factored state-emitting FSA and
+  ``CompiledDenFsa.to_blocked`` its superblocked export, whose device copy
+  is ``ops.fwdbwd.BlockedDenGraph.from_host``.
+
+Not ported yet: the committed +-1 composition, ``to_factored`` and
+``to_state_graph``.
 """
 
 from __future__ import annotations
@@ -17,8 +22,73 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from tdnnf_nas_torch.graphs.phone_lm import BOS, NGramPhoneLM
-from tdnnf_nas_torch.graphs.topology import ChainTopology
+from tdnnf_nas_torch.graphs.fsa import StateGraph, stationary_init
+from tdnnf_nas_torch.graphs.phone_lm import BOS, NGramPhoneLM, PhoneLM
+from tdnnf_nas_torch.graphs.topology import BiphoneTree, ChainTopology
+
+
+def den_init_lookup(g: StateGraph, num_phones: int):
+    """Map a numerator state (phone, kind, left) -> den-graph initial prob.
+
+    kind 0 = enter, 1 = loop.  Layout must match build_denominator_graph:
+    CI graphs index enter states by phone and loop states by P+phone;
+    biphone graphs index enter states by (left+1)*P + phone.
+    """
+    s = g.num_states
+    if s == 2 * num_phones:  # CI layout
+        return lambda p, kind, left=-1: float(
+            g.init[p] if kind == 0 else g.init[num_phones + p]
+        )
+    n_enter = (num_phones + 1) * num_phones
+    if s != n_enter + num_phones:
+        raise ValueError("unknown den-graph layout")
+    return lambda p, kind, left=-1: float(
+        g.init[(left + 1) * num_phones + p] if kind == 0 else g.init[n_enter + p]
+    )
+
+
+def build_denominator_graph(lm: PhoneLM, topo: ChainTopology, tree) -> StateGraph:
+    """Dense den graph of a bigram LM: for each phone p an enter state
+    (p's forward pdf) and a loop state (p's self-loop pdf); from either,
+    -> loop(p) with self_loop_prob and -> enter(q) with
+    (1 - self_loop_prob) * P_lm(q | p).  Initial probs are the averaged
+    power-iteration occupancies from the BOS row; finals are 1.  A
+    left-biphone tree splits the enter states per left context
+    (``_build_biphone``)."""
+    p_count = lm.num_phones
+    if topo.num_phones != p_count:
+        raise ValueError("phone count mismatch between LM and topology")
+    a = topo.self_loop_prob
+    if isinstance(tree, BiphoneTree):
+        return _build_biphone(lm, topo, tree)
+    # CI / shared-context tree: states [enter(0..P-1), loop(0..P-1)]
+    s = 2 * p_count
+    trans = np.zeros((s, s), dtype=np.float64)
+    state_pdf = np.zeros((s,), dtype=np.int32)
+    for p in range(p_count):
+        state_pdf[p] = tree.forward_pdf(p)
+        state_pdf[p_count + p] = tree.self_loop_pdf(p)
+        for src in (p, p_count + p):
+            trans[src, p_count + p] += a
+            trans[src, :p_count] += (1.0 - a) * lm.probs[p + 1].astype(np.float64)
+    g = StateGraph(
+        trans=trans.astype(np.float32),
+        state_pdf=state_pdf,
+        init=np.full((s,), 1.0 / s, dtype=np.float32),
+        final=np.ones((s,), dtype=np.float32),
+        num_pdfs=tree.num_pdfs,
+    ).normalize()
+    start = np.zeros((s,), np.float64)
+    start[:p_count] = lm.probs[0].astype(np.float64)  # BOS row -> enter states
+    g = StateGraph(
+        trans=g.trans,
+        state_pdf=g.state_pdf,
+        init=stationary_init(g.trans, start=start, average=True),
+        final=g.final,
+        num_pdfs=g.num_pdfs,
+    )
+    g.validate()
+    return g
 
 
 @dataclasses.dataclass
@@ -551,3 +621,50 @@ def compile_denominator_fsa(lm, topo: ChainTopology, tree) -> CompiledDenFsa:
         start_pos=start_id,
         pos_trans=pos_trans,
     )
+
+
+def _build_biphone(lm: PhoneLM, topo: ChainTopology, tree: BiphoneTree) -> StateGraph:
+    """Left-biphone dense den: enter states per (left in -1..P-1, phone),
+    then one loop state per phone, S = P*(P+1) + P."""
+    p_count = lm.num_phones
+    a = topo.self_loop_prob
+
+    def enter_idx(left: int, phone: int) -> int:
+        return (left + 1) * p_count + phone
+
+    n_enter = (p_count + 1) * p_count
+    s = n_enter + p_count
+    loop0 = n_enter
+    trans = np.zeros((s, s), dtype=np.float64)
+    state_pdf = np.zeros((s,), dtype=np.int32)
+    for left in range(-1, p_count):
+        for p in range(p_count):
+            state_pdf[enter_idx(left, p)] = tree.forward_pdf(p, left)
+    for p in range(p_count):
+        state_pdf[loop0 + p] = tree.self_loop_pdf(p)
+    lmp = lm.probs.astype(np.float64)
+    for p in range(p_count):
+        srcs = [enter_idx(left, p) for left in range(-1, p_count)] + [loop0 + p]
+        for src in srcs:
+            trans[src, loop0 + p] += a
+            for q in range(p_count):
+                trans[src, enter_idx(p, q)] += (1.0 - a) * lmp[p + 1, q]
+    g = StateGraph(
+        trans=trans.astype(np.float32),
+        state_pdf=state_pdf,
+        init=np.full((s,), 1.0 / s, dtype=np.float32),
+        final=np.ones((s,), dtype=np.float32),
+        num_pdfs=tree.num_pdfs,
+    ).normalize()
+    start = np.zeros((s,), np.float64)
+    for q in range(p_count):
+        start[enter_idx(-1, q)] = lmp[0, q]  # BOS row
+    g = StateGraph(
+        trans=g.trans,
+        state_pdf=g.state_pdf,
+        init=stationary_init(g.trans, start=start, average=True),
+        final=g.final,
+        num_pdfs=g.num_pdfs,
+    )
+    g.validate()
+    return g

@@ -1,11 +1,14 @@
-"""Numpy copy of ``tdnnf_nas_tpu.graphs.phone_lm`` (pruned n-gram phone LM).
+"""Numpy copy of ``tdnnf_nas_tpu.graphs.phone_lm`` (phone LMs).
 
-Equivalent of Kaldi's ``chain-est-phone-lm``: a higher-order phone LM with
-kept-state pruning (all bigram contexts kept; longer contexts grown
-best-first by training-data log-likelihood gain up to
-``num_extra_lm_states``), exposed as an FSA over kept histories.  The
-bigram ``PhoneLM`` of the reference is not ported yet (only the dense
-biphone denominator uses it).
+Equivalent of Kaldi's ``chain-est-phone-lm``.  Two models, both exposed
+through one FSA-walk interface (``walk_init``, ``walk``, ``final_prob``):
+
+* ``PhoneLM``: interpolated bigram (dense [P+1, P] matrix), the LM of the
+  dense biphone denominator (``graphs/den_graph.build_denominator_graph``);
+* ``NGramPhoneLM``: higher-order with kept-state pruning (all bigram
+  contexts kept; longer contexts grown best-first by training-data
+  log-likelihood gain up to ``num_extra_lm_states``), an FSA over kept
+  histories, the LM of the composed denominator.
 """
 
 from __future__ import annotations
@@ -17,6 +20,85 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 
 BOS = -1  # beginning-of-sequence context
+
+
+@dataclasses.dataclass
+class PhoneLM:
+    """Bigram phone LM.
+
+    probs[p+1, q] = P(q | p), with row 0 the BOS context.  Rows sum to
+    P(end | p) + sum_q P(q | p) = 1 where ``final[p+1] = P(end | p)``.
+    """
+
+    probs: np.ndarray  # [P+1, P] float32
+    final: np.ndarray  # [P+1] float32
+    num_phones: int
+
+    def log_prob(self, seq: Sequence[int]) -> float:
+        lp = 0.0
+        prev = BOS
+        for p in seq:
+            lp += float(np.log(self.probs[prev + 1, p]))
+            prev = p
+        return lp + float(np.log(self.final[prev + 1]))
+
+    # --- uniform FSA-walk interface (shared with NGramPhoneLM) ---
+    @property
+    def order(self) -> int:
+        return 2
+
+    def walk_init(self) -> int:
+        """Context handle at beginning-of-sequence."""
+        return BOS
+
+    def walk(self, ctx: int, q: int) -> Tuple[float, int]:
+        """(P(q | ctx), next context): for a bigram, ctx is the prev phone."""
+        return float(self.probs[ctx + 1, q]), q
+
+    def final_prob(self, ctx: int) -> float:
+        return float(self.final[ctx + 1])
+
+
+def estimate_phone_lm(
+    phone_seqs: Iterable[Sequence[int]],
+    num_phones: int,
+    interp: float = 0.1,
+) -> PhoneLM:
+    """Count-based interpolated bigram over training phone sequences.
+
+    ``interp`` interpolates with the unigram distribution so every phone
+    pair has nonzero probability (keeps the denominator graph fully
+    connected, the property Kaldi gets from its un-pruned phone LM).
+    """
+    counts = np.zeros((num_phones + 1, num_phones), dtype=np.float64)
+    final_counts = np.zeros((num_phones + 1,), dtype=np.float64)
+    uni = np.zeros((num_phones,), dtype=np.float64)
+    n_seqs = 0
+    for seq in phone_seqs:
+        n_seqs += 1
+        prev = BOS
+        for p in seq:
+            counts[prev + 1, p] += 1.0
+            uni[p] += 1.0
+            prev = p
+        final_counts[prev + 1] += 1.0
+    if n_seqs == 0:
+        raise ValueError("no phone sequences")
+    uni = (uni + 1.0) / (uni.sum() + num_phones)
+    tot = counts.sum(axis=1) + final_counts
+    # final prob: fraction of times the context ended a sequence (floored)
+    final = (final_counts + 0.5) / (tot + 1.0)
+    row = counts.sum(axis=1)
+    cond = counts / np.maximum(row[:, None], 1.0)
+    cond = np.where(row[:, None] > 0, cond, uni[None, :])
+    probs = (1.0 - interp) * cond + interp * uni[None, :]
+    # renormalize so probs-row + final == 1
+    probs = probs * (1.0 - final[:, None]) / probs.sum(axis=1, keepdims=True)
+    return PhoneLM(
+        probs=probs.astype(np.float32),
+        final=final.astype(np.float32),
+        num_phones=num_phones,
+    )
 
 History = Tuple[int, ...]  # most-recent phone last; BOS (-1) may lead
 

@@ -123,6 +123,7 @@ def make_chunk_supervision(
     num_frames: int,
     max_states: int,
     tol: int = 2,
+    den_init_fn=None,
     den_init_seq=None,
     init_ctx=None,
     init_left: tuple = (),
@@ -130,10 +131,13 @@ def make_chunk_supervision(
     """Full numerator supervision for one chunk.
 
     begins/ends None => unaligned: all states allowed at all frames.
-    ``den_init_seq`` = (enter_init[i], loop_init[i]) from the composed den
-    FSA (``CompiledDenFsa.init_lookup_seq``): numerator init weights are
-    those den weights restricted to allowed start states.  Without it,
-    init is uniform over the allowed start states.
+    Numerator init weights are the den graph's initial probs restricted to
+    the allowed start states (the role of Kaldi's normalization FST), taken
+    from ``den_init_seq`` = (enter_init[i], loop_init[i]) of the composed
+    den FSA (``CompiledDenFsa.init_lookup_seq``) or else from
+    ``den_init_fn(phone, kind, left_phone)`` of a dense den graph
+    (``graphs.den_graph.den_init_lookup``; kind 0 = enter, 1 = loop).
+    Without either, init is uniform over the allowed start states.
     """
     trans, state_pdf, init, final, next_w = numerator_graph(
         phones, lm, topo, tree, max_states,
@@ -158,6 +162,15 @@ def make_chunk_supervision(
                 init[2 * i] = ent[i]
             if allowed0[2 * i + 1]:
                 init[2 * i + 1] = loop[i]
+    elif den_init_fn is not None:
+        init = np.zeros((max_states,), dtype=np.float32)
+        prev = init_left[0] if len(init_left) else -1
+        for i, p in enumerate(phones):
+            if allowed0[2 * i]:
+                init[2 * i] = den_init_fn(p, 0, prev)
+            if allowed0[2 * i + 1]:
+                init[2 * i + 1] = den_init_fn(p, 1, prev)
+            prev = p
     else:
         init = allowed0.astype(np.float32)
         init /= init.sum()

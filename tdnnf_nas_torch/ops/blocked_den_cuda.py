@@ -8,8 +8,8 @@ kernels live in ``csrc/blocked_den.cu``; the source note there says what
 bounds them on an H100 (about 1.3 GFLOP of float32 block product per
 flagship frame against a 40.5 MB W that fits L2) and how they are laid out.
 
-Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``tdnnf_nas_torch/_build/`` (git-ignored), keyed on a hash of the source,
+Build: at first use, by ``ops/cuda_build.py`` (nvcc for sm_90a into the
+git-ignored ``tdnnf_nas_torch/_build/``, keyed on a hash of the source),
 loaded with ctypes.  Each direction is one C call that runs the whole
 T-loop on the current stream.
 
@@ -21,22 +21,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from tdnnf_nas_torch.ops import cuda_build
+from tdnnf_nas_torch.ops.cuda_build import ptr as _ptr
+
 _TINY = 1e-30
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "blocked_den.cu"
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_SRC = cuda_build.CSRC / "blocked_den.cu"
 
 
 # ------------------------------------------------------------ plain versions
@@ -132,22 +125,7 @@ def blocked_scan_bwd_plain(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' shared library."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"blocked_den_{digest[:16]}.so"
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                           check=True)
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so))
+    lib = cuda_build.load(_SRC)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.blocked_den_fwd_partials.argtypes = [i, i]
     lib.blocked_den_fwd_partials.restype = i
@@ -160,15 +138,6 @@ def _library() -> ctypes.CDLL:
                                     + [p] * 4 + [p])
     lib.blocked_den_bwd.restype = i
     return lib
-
-
-def build() -> Path:
-    """Build and load the kernels now; returns the shared library's path."""
-    return Path(_library()._name)
-
-
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
 
 
 def _check_cuda_inputs(obs_virtual: torch.Tensor, g) -> None:

@@ -1,8 +1,14 @@
 """LF-MMI forward(-backward) (port of ``tdnnf_nas_tpu.ops.fwdbwd``).
 
-Denominator: the class-blocked scaled-probability recursion of
-``forward_score_blocked``, whose forward and adjoint scans run as
-hand-written CUDA kernels on the card (``ops/blocked_den_cuda.py``).
+Denominator, in two forms:
+- class-blocked (composed n-gram graphs): ``forward_score_blocked``, whose
+  forward and adjoint scans run as hand-written CUDA kernels on the card
+  (``ops/blocked_den_cuda.py``);
+- dense [S, S] (bigram biphone graphs, ``DenGraphArrays``): trained
+  through the hand-written kernel pair behind
+  ``ops/dense_den_cuda.pallas_forward_score``; the plain scaled-probability
+  recursion ``forward_score`` here (the reference's XLA path, gradient from
+  autograd) is the tested reference and serves ``occupancy_posteriors``.
 Numerator: the log-space banded recursion ``forward_score_linear`` in
 plain torch; its gradient comes from autograd.
 
@@ -19,14 +25,54 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tdnnf_nas_torch.ops.blocked_den_cuda import blocked_den_score
+from tdnnf_nas_torch.ops.blocked_den_cuda import _TINY, blocked_den_score
 
-_TINY = 1e-30
 # Emission floor on max-normalized log-observations: the per-frame mass
 # can never underflow (c >= e^-30 >> _TINY), so the backward's 1/c terms
 # stay finite for wildly confident outputs.
 _MIN_LOG_OBS = -30.0
 _NEG_LOG = -1e30
+
+
+def _normalized_log_obs(obs_logprob: torch.Tensor):
+    """(obs, offset) for nnet log-outputs [B, T, P]: float32 obs minus its
+    detached per-frame max, floored at ``_MIN_LOG_OBS``, and the [B] sum of
+    those maxima, which the caller adds back into logZ."""
+    obs = obs_logprob.float()
+    mx = obs.amax(dim=-1, keepdim=True).detach()
+    floor = torch.tensor(_MIN_LOG_OBS, device=obs.device)
+    return torch.maximum(obs - mx, floor), mx[:, :, 0].sum(dim=1)
+
+
+@dataclasses.dataclass
+class DenGraphArrays:
+    """Device copy of a dense denominator graph (shared across the batch).
+
+    ``trans_T`` is the contiguous transpose: the adjoint's product
+    ``v @ trans^T`` streams its rows as the forward streams ``trans``'s.
+    """
+
+    trans: torch.Tensor  # [S, S] f32
+    trans_T: torch.Tensor  # [S, S] f32
+    state_pdf: torch.Tensor  # [S] int64 (index_select)
+    init: torch.Tensor  # [S] f32
+    final: torch.Tensor  # [S] f32
+
+    @classmethod
+    def from_graph(cls, g, device="cpu") -> "DenGraphArrays":
+        """Copy a host ``graphs.fsa.StateGraph`` to ``device``."""
+
+        def dev(a, dtype):
+            return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=device)
+
+        return cls(
+            trans=dev(g.trans, torch.float32),
+            trans_T=dev(g.trans.T, torch.float32),
+            state_pdf=dev(g.state_pdf, torch.int64),
+            init=dev(g.init, torch.float32),
+            final=dev(g.final, torch.float32),
+        )
 
 
 @dataclasses.dataclass
@@ -97,15 +143,124 @@ def forward_score_blocked(
     ``obs_bf16`` keeps the expanded (virtual-slot) observations in bf16;
     the recursion stays float32 (upcast at the multiply).
     """
-    obs = obs_logprob.float()
-    mx = obs.amax(dim=-1, keepdim=True).detach()
-    floor = torch.tensor(_MIN_LOG_OBS, device=obs.device)
-    obs_exp = torch.exp(torch.maximum(obs - mx, floor))
+    obs_norm, offset = _normalized_log_obs(obs_logprob)
+    obs_exp = torch.exp(obs_norm)
     if obs_bf16:
         obs_exp = obs_exp.to(torch.bfloat16)
     obs_virtual = obs_exp.index_select(-1, g.pdf_virtual)  # [B, T, V]
     logz = blocked_den_score(obs_virtual, g, float(leaky_coef))
-    return logz + mx[:, :, 0].sum(dim=1)
+    return logz + offset
+
+
+def _gather_obs(obs_exp: torch.Tensor, state_pdf: torch.Tensor) -> torch.Tensor:
+    """obs_exp [B, T, P] -> per-state obs [B, T, S] for a shared [S] or a
+    per-sequence [B, S] state_pdf."""
+    if state_pdf.ndim == 1:
+        return obs_exp.index_select(-1, state_pdf.long())
+    b, t, _ = obs_exp.shape
+    idx = state_pdf.long()[:, None, :].expand(b, t, state_pdf.shape[-1])
+    return torch.gather(obs_exp, 2, idx)
+
+
+def forward_score(
+    obs_logprob: torch.Tensor,
+    trans: torch.Tensor,
+    state_pdf: torch.Tensor,
+    init: torch.Tensor,
+    final: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    leaky_coef: float = 0.0,
+) -> torch.Tensor:
+    """Total (log) graph score per sequence, [B] logZ, as a plain loop over
+    frames whose gradient comes from autograd:
+
+        alpha' = ((alpha + leaky*init) @ trans) * obs[t] * mask[t]
+
+    renormalized per frame.  obs_logprob [B, T, P] nnet log-outputs
+    (exponentiated inside after the per-frame max is subtracted); trans
+    [S, S] shared or [B, S, S] per sequence; state_pdf/init/final [S] or
+    [B, S]; mask an optional [B, T, S] allow-mask; ``leaky_coef`` the
+    leaky-HMM coefficient (denominator only).
+    """
+    b, t, _ = obs_logprob.shape
+    obs_norm, offset = _normalized_log_obs(obs_logprob)
+    obs_state = _gather_obs(torch.exp(obs_norm), state_pdf)  # [B, T, S]
+    if mask is not None:
+        obs_state = obs_state * mask
+    init_b = init if init.ndim == 2 else init[None, :]
+    final_b = final if final.ndim == 2 else final[None, :]
+
+    a0 = init_b * obs_state[:, 0]
+    c0 = torch.clamp(a0.sum(dim=-1), min=_TINY)
+    alpha = a0 / c0[:, None]
+    logcs = []
+    for ti in range(1, t):
+        if leaky_coef > 0.0:
+            alpha = alpha + leaky_coef * init_b
+        if trans.ndim == 2:
+            a = alpha @ trans
+        else:
+            a = torch.bmm(alpha[:, None, :], trans)[:, 0]
+        a = a * obs_state[:, ti]
+        c = torch.clamp(a.sum(dim=-1), min=_TINY)
+        alpha = a / c[:, None]
+        logcs.append(torch.log(c))
+    log_final = torch.log(torch.clamp((alpha * final_b).sum(dim=-1),
+                                      min=_TINY))
+    logz = torch.log(c0)
+    if logcs:
+        logz = logz + torch.stack(logcs).sum(dim=0)
+    return logz + log_final + offset
+
+
+def occupancy_posteriors(
+    obs_logprob: torch.Tensor,
+    trans: torch.Tensor,
+    state_pdf: torch.Tensor,
+    init: torch.Tensor,
+    final: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    leaky_coef: float = 0.0,
+):
+    """(logZ [B], gamma [B, T, P]): per-frame pdf occupancy posteriors,
+    gamma = d logZ / d obs_logprob (each frame's posteriors sum to 1), the
+    xent head's soft targets.  Both are detached."""
+    with torch.enable_grad():
+        o = obs_logprob.detach().requires_grad_(True)
+        scores = forward_score(o, trans, state_pdf, init, final, mask,
+                               leaky_coef)
+        gamma, = torch.autograd.grad(scores.sum(), o)
+    return scores.detach(), gamma
+
+
+def forward_score_reference(
+    obs_logprob: np.ndarray,
+    trans: np.ndarray,
+    state_pdf: np.ndarray,
+    init: np.ndarray,
+    final: np.ndarray,
+    mask: Optional[np.ndarray] = None,
+    leaky_coef: float = 0.0,
+) -> float:
+    """Slow log-semiring numpy reference for one sequence (tests only)."""
+    t_len = obs_logprob.shape[0]
+    with np.errstate(divide="ignore"):
+        log_trans = np.log(trans.astype(np.float64))
+        log_init = np.log(init.astype(np.float64))
+        log_final = np.log(final.astype(np.float64))
+        log_mask = None if mask is None else np.log(mask.astype(np.float64))
+    obs_s = obs_logprob.astype(np.float64)[:, state_pdf]  # [T, S]
+    if log_mask is not None:
+        obs_s = obs_s + log_mask
+    log_alpha = log_init + obs_s[0]
+    for t in range(1, t_len):
+        if leaky_coef > 0.0:
+            tot = np.logaddexp.reduce(log_alpha)
+            leak = np.log(leaky_coef) + log_init + tot
+            log_alpha = np.logaddexp(log_alpha, leak)
+        log_alpha = (np.logaddexp.reduce(log_alpha[:, None] + log_trans, axis=0)
+                     + obs_s[t])
+    return float(np.logaddexp.reduce(log_alpha + log_final))
 
 
 def forward_score_linear(

@@ -12,12 +12,15 @@ targets.  The returned loss is -objf.
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 
 from tdnnf_nas_torch.core.config import Config
 from tdnnf_nas_torch.graphs.supervision import ChunkSupervision
-from tdnnf_nas_torch.ops.fwdbwd import (BlockedDenGraph, forward_score_blocked,
+from tdnnf_nas_torch.ops.dense_den_cuda import pallas_forward_score
+from tdnnf_nas_torch.ops.fwdbwd import (BlockedDenGraph, DenGraphArrays,
+                                        forward_score_blocked,
                                         forward_score_linear)
 
 
@@ -26,6 +29,11 @@ class ChainObjectiveConfig(Config):
     xent_regularize: float = 0.1
     leaky_hmm_coef: float = 0.1
     out_l2_regularize: float = 0.0  # Kaldi --chain.l2-regularize (on outputs)
+    # the reference's switch to its Pallas dense-den kernel, kept so its
+    # configs carry across; the port ignores it: a dense den always scans
+    # with the hand-written kernels (ops/dense_den_cuda.py), whose plain
+    # versions serve the CPU
+    pallas_den: bool = False
     # keep the expanded per-slot observations of the blocked den in bf16
     # (the recursion stays float32)
     den_obs_bf16: bool = False
@@ -34,25 +42,31 @@ class ChainObjectiveConfig(Config):
 def chain_objective(
     chain_out: torch.Tensor,
     xent_out: torch.Tensor,
-    den: BlockedDenGraph,
+    den: Union[BlockedDenGraph, DenGraphArrays],
     sup: ChunkSupervision,
     cfg: ChainObjectiveConfig,
 ):
     """(loss, metrics) for [B, T, P] head outputs and a batched
     supervision of device tensors.  Metrics are detached tensors."""
-    if not isinstance(den, BlockedDenGraph):
-        raise NotImplementedError(
-            f"{type(den).__name__} denominators are not ported yet; the "
-            "dense, factored and sparse kernels come in a later slice")
+    if not isinstance(den, (BlockedDenGraph, DenGraphArrays)):
+        raise TypeError(
+            f"{type(den).__name__} denominators are not ported; the port "
+            "takes BlockedDenGraph and DenGraphArrays (the factored and "
+            "sparse graphs are not ported yet)")
     if sup.next_w is None:
         raise NotImplementedError(
             "the dense numerator (no next_w) is not ported yet")
     b, t, _ = chain_out.shape
     n_frames = b * t
 
-    logz_den = forward_score_blocked(chain_out, den,
-                                     leaky_coef=cfg.leaky_hmm_coef,
-                                     obs_bf16=cfg.den_obs_bf16)
+    if isinstance(den, BlockedDenGraph):
+        logz_den = forward_score_blocked(chain_out, den,
+                                         leaky_coef=cfg.leaky_hmm_coef,
+                                         obs_bf16=cfg.den_obs_bf16)
+    else:
+        logz_den = pallas_forward_score(
+            chain_out, den.trans, den.state_pdf, den.init, den.final,
+            leaky_coef=cfg.leaky_hmm_coef, trans_T=den.trans_T)
 
     # Numerator: logZ_num and its gradient gamma (= occupancy posteriors)
     # on a detached copy; a first-order surrogate re-attaches the exact

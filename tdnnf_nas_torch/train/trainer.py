@@ -12,13 +12,13 @@ the dropout schedule, ``train_theta``/``bn_frozen`` and the valid step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
 
 from tdnnf_nas_torch.core.config import Config
 from tdnnf_nas_torch.models import tdnnf as tdnnf_mod
-from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
+from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph, DenGraphArrays
 from tdnnf_nas_torch.ops.semiorth import (semi_orthogonal_step,
                                           semi_orthogonal_step_3d)
 from tdnnf_nas_torch.train.objective import (ChainObjectiveConfig,
@@ -78,7 +78,7 @@ def _apply_semiorth(params, model_cfg):
 
 
 def make_train_step(model_cfg, trainer_cfg: TrainerConfig,
-                    den: BlockedDenGraph,
+                    den: Union[BlockedDenGraph, DenGraphArrays],
                     generator: Optional[torch.Generator] = None):
     """Build the train step.
 
