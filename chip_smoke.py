@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tdnnf_nas_torch``) on one NVIDIA GPU.
 
-Drives the port's two training paths, a few LF-MMI steps each of the
+Drives the port's two training paths and its architecture search: a few
+LF-MMI steps each of the
 flagship TDNN-F 7q model (random seeded weights) on 64 x 150-frame
 chunks: against the production 4-gram x left-2 triphone blocked
 denominator (10,271 states, 6,034 pdfs, 18,751,248 params), and against
 the bigram x left-biphone dense denominator (2,208 states, 2,208 pdfs,
-16,784,684 params).  Checks the hand-written CUDA kernels of both paths
-against their plain PyTorch versions.  Phases, each raising on failure:
+16,784,684 params), then the two-stage DARTS search against the dense
+den.  Checks the hand-written CUDA kernels of each path against their
+plain PyTorch versions.  Phases, each raising on failure:
 
   0. build both kernel libraries from ``tdnnf_nas_torch/csrc`` (one nvcc
      per source, started together, sm_90a);
@@ -25,7 +27,19 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      at B=64, T=50, S=2,208 in float32, with timings; launch counters
      reset, then 6 bf16 steps with the default objective config (objf
      and grad_norm finite, both kernels launched once per step, ms/step);
-     one float32 kernel step against the same step through the plain den.
+     one float32 kernel step against the same step through the plain den;
+  6. the two-stage DARTS search on phase 5's biphone bundle and den: the
+     offsets supernet (K = 7 branches x 14 layers, 51,494,904 params,
+     context (85, 85), B = 32) with launch counters reset: 2 warm-up and
+     4 timed uniform steps, theta only (ms/step, peak memory); 3 gumbel
+     alpha-only steps on the dev split with theta and BN frozen (checked
+     bit for bit); top-3 extraction and 2 bf16 steps of the child; the
+     bottleneck supernet (23,232,504 params, context (34, 34)): 2 uniform
+     and 2 gumbel alpha-only steps with the FLOPs penalty; one float32
+     softmax supernet step through the kernels against the same step
+     through the plain den.  Every supernet step launches each dense
+     kernel once; each run after stage A times its steps after the
+     first.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as its last line
@@ -243,7 +257,7 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
            "dense f32 grad_norm kernel vs plain")
 
     src = "tdnnf_nas_torch/csrc/dense_den.cu"
-    return [
+    rows = [
         {"name": "dense_den_fwd", "route": "cuda", "source": src,
          "replaces": f"{_TPU_KERNELS}:74", "launches": launches["fwd"],
          "max_abs_err": err_z, "ms": times["fwd"],
@@ -253,6 +267,239 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
          "max_abs_err": err_g, "ms": times["bwd"],
          "plain_ms": times["bwd_plain"]},
     ]
+    return rows, bundle, g
+
+
+def _dense_launches(ddc):
+    return (ddc.dense_den_fwd_cuda.launches, ddc.dense_den_bwd_cuda.launches)
+
+
+def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
+                  expect_params):
+    """Phase 6, the two-stage DARTS search on the dense biphone den (setup
+    of scripts/search_flagship_synthetic.py:48-49,59-92).  ``base`` is the
+    searched model's TDNN-F config, ``expect_params`` the two supernets'
+    parameter counts.  Returns the dense kernels' launches over the
+    search's steps, {"fwd": n, "bwd": n}."""
+    import dataclasses
+
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.data import batch_iterator
+    from tdnnf_nas_torch.models import (BOTTLENECK_DIMS, DartsModelConfig,
+                                        SearchMode, count_params,
+                                        supernet_context)
+    from tdnnf_nas_torch.nas import (arch_param_count, child_config_from_arch,
+                                     extract_bottlenecks, extract_offsets)
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
+    from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
+                                       TrainerConfig, init_train_state,
+                                       make_train_step)
+    from tdnnf_nas_torch.train.optimizer import tree_paths
+
+    chunk_width = 50
+    audio_s = batch_size * chunk_width * 3 * 0.010
+    launches = {"fwd": 0, "bwd": 0}
+
+    def batches(model_cfg, n, dev_split=False, supernet=True, seed=0):
+        chunks = bundle.egs(None if supernet else model_cfg,
+                            chunk_width=chunk_width, dev=dev_split,
+                            max_phones_per_chunk=40,
+                            supernet_cfg=model_cfg if supernet else None)
+        out = []
+        for b in batch_iterator(chunks, batch_size=batch_size,
+                                rng=np.random.RandomState(seed)):
+            if len(out) == n:
+                break
+            out.append(convert.batch_to_torch(b, dev))
+        _check(len(out) == n, f"{n} full batches of {batch_size}")
+        return len(chunks), out
+
+    def run(label, step, state, bs, n_warm=1):
+        """Steps over bs with the launch counters reset before and read
+        after; each step launches each dense kernel once.  Prints ms/step
+        over the steps after the first n_warm (the first use of each
+        kernel and GEMM shape loads and tunes it)."""
+        ddc.dense_den_fwd_cuda.launches = 0
+        ddc.dense_den_bwd_cuda.launches = 0
+        ms = []
+        for i, b in enumerate(bs):
+            if i == n_warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, b)
+            ms.append(m)
+            _check(_dense_launches(ddc) == (i + 1, i + 1),
+                   f"{label}: one launch of each dense kernel per step")
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (len(bs) - n_warm)
+        launches["fwd"] += ddc.dense_den_fwd_cuda.launches
+        launches["bwd"] += ddc.dense_den_bwd_cuda.launches
+        objfs = [float(m["objf_mmi"]) for m in ms]
+        print(f"[{label}] objf_mmi per step: "
+              + " ".join(f"{v:.4f}" for v in objfs) + f"; {dt * 1e3:.2f} "
+              f"ms/step over {len(bs) - n_warm} steps after {n_warm} "
+              f"warm-up, B={batch_size}, T_in={bs[0]['feats'].shape[1]} "
+              f"({gpu})",
+              flush=True)
+        _check(all(np.isfinite(objfs)), f"{label}: objf_mmi finite")
+        _check(all(np.isfinite(float(m["grad_norm"])) for m in ms),
+               f"{label}: grad_norm finite")
+        return state, ms, dt
+
+    # ---- 6.0 setup: the offsets supernet ----
+    t0 = time.perf_counter()
+    darts = DartsModelConfig(base=base, search_offsets=True, max_stride=6)
+    _check(supernet_context(darts) == (85, 85), "context (85, 85)")
+    n_train, train_b = batches(darts, 6)
+    n_dev, dev_b = batches(darts, 3, dev_split=True, seed=1)
+    print(f"[search setup] {time.perf_counter() - t0:.1f} s: context "
+          f"{supernet_context(darts)}, {n_train} train / {n_dev} dev chunks, "
+          f"feats {list(train_b[0]['feats'].shape)}", flush=True)
+
+    # ---- 6.1 stage A: uniform one-hot pretrain, theta only ----
+    pre_cfg = TrainerConfig(
+        objective=ChainObjectiveConfig(),
+        optimizer=OptimizerConfig(kind="adam", lr_initial=1e-3,
+                                  lr_final=3e-4, num_steps=200),
+        search_mode=SearchMode.UNIFORM)
+    state = init_train_state(darts, pre_cfg, torch.Generator().manual_seed(0),
+                             dev, supernet=True)
+    n_params = count_params(state.params)
+    shapes = {k: tuple(v.shape) for k, v in state.alphas.items()}
+    print(f"[search A] supernet params={n_params:,} alphas={shapes}",
+          flush=True)
+    _check(n_params == expect_params[0], f"{expect_params[0]:,} params")
+    k = darts.num_candidates
+    _check(shapes == {"offsets_linear": (darts.num_layers, k),
+                      "offsets_affine": (darts.num_layers, k)},
+           "offset alphas [L, K] twice")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    step = make_train_step(darts, pre_cfg, g, generator=gen, supernet=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, _, dt_a = run("search A", step, state, train_b, n_warm=2)
+    print(f"[search A] bf16, uniform: {audio_s / dt_a:.1f} audio-s/s; peak "
+          f"mem {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"({gpu})", flush=True)
+
+    # ---- 6.2 stage B: gumbel alpha-only cv-update, theta + BN frozen ----
+    cv_cfg = TrainerConfig(
+        objective=ChainObjectiveConfig(),
+        optimizer=OptimizerConfig(kind="adam", lr_initial=1e-2,
+                                  lr_final=3e-3, num_steps=60,
+                                  alpha_lr_scale=1.0),
+        search_mode=SearchMode.GUMBEL, train_theta=False, train_alpha=True,
+        bn_frozen=True)
+    # the script restarts the step count (search_flagship_synthetic.py:97)
+    state = dataclasses.replace(state, step=0)
+    before = convert.supernet_state_to_numpy(state)
+    step_b = make_train_step(darts, cv_cfg, g, generator=gen, supernet=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, ms_b, _ = run("search B", step_b, state, dev_b)
+    after = convert.supernet_state_to_numpy(state)
+    for name, i in (("params", 0), ("bn_state", 2)):
+        a_leaves = [a for _, a in tree_paths(before[i])]
+        b_leaves = [b for _, b in tree_paths(after[i])]
+        _check(len(a_leaves) == len(b_leaves) and all(
+            np.array_equal(a, b) for a, b in zip(a_leaves, b_leaves)),
+            f"stage B leaves {name} unchanged bit for bit")
+    moved = max(float(np.abs(after[1][n] - before[1][n]).max())
+                for n in before[1])
+    _check(moved > 0.0, "stage B moved the alphas")
+    print(f"[search B] gumbel, alpha only: tau per step "
+          + " ".join(f"{float(m['tau']):.4f}" for m in ms_b)
+          + f"; params and BN unchanged bit for bit; max |d alpha| "
+          f"{moved:.3e}; peak mem "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB ({gpu})",
+          flush=True)
+
+    # ---- 6.3 extraction and the child ----
+    archs = extract_offsets(after[1]["offsets_linear"],
+                            after[1]["offsets_affine"], top_k=3)
+    for rank, (pairs, lp) in enumerate(archs):
+        print(f"[search extract] top {rank + 1}: logprob {lp:.4f} "
+              f"pairs {list(pairs)}", flush=True)
+    _check(len(archs) == 3 and all(
+        0 <= s <= darts.max_stride for pr, _ in archs for p in pr for s in p),
+        "three archs with offsets in range")
+    child = child_config_from_arch(base, stride_pairs=archs[0][0])
+    child_tc = TrainerConfig(objective=ChainObjectiveConfig(),
+                             optimizer=pre_cfg.optimizer)
+    child_state = init_train_state(child, child_tc,
+                                   torch.Generator().manual_seed(4), dev)
+    n_child = count_params(child_state.params)
+    _check(arch_param_count(child) == n_child,
+           "arch_param_count(child) == count_params(init_model(child))")
+    _, child_b = batches(child, 2, supernet=False)
+    run("search child", make_train_step(child, child_tc, g), child_state,
+        child_b)
+    print(f"[search child] params={n_child:,} = arch_param_count", flush=True)
+    del state, step, step_b, train_b, dev_b, child_state, child_b
+
+    # ---- 6.4 the bottleneck supernet ----
+    bdarts = DartsModelConfig(base=base, search_offsets=False,
+                              fixed_strides=base.stride_pairs,
+                              search_bottleneck=True)
+    _check(supernet_context(bdarts) == (34, 34), "context (34, 34)")
+    n_btrain, btrain_b = batches(bdarts, 2)
+    _, bdev_b = batches(bdarts, 2, dev_split=True, seed=1)
+    bstate = init_train_state(bdarts, pre_cfg, torch.Generator().manual_seed(6),
+                              dev, supernet=True)
+    n_bparams = count_params(bstate.params)
+    bshape = tuple(bstate.alphas["bottleneck"].shape)
+    print(f"[search bottleneck] supernet params={n_bparams:,} alphas "
+          f"{bshape}, context {supernet_context(bdarts)}, {n_btrain} train "
+          f"chunks", flush=True)
+    _check(n_bparams == expect_params[1], f"{expect_params[1]:,} params")
+    _check(set(bstate.alphas) == {"bottleneck"} and bshape == (
+        bdarts.num_layers, len(bdarts.bottleneck_groups)), "alphas [L, C]")
+    bstate, _, _ = run("search bottleneck A", make_train_step(
+        bdarts, pre_cfg, g, generator=gen, supernet=True), bstate, btrain_b)
+    bcv = cv_cfg.replace(flops_coef=1e-4)
+    bstate, ms_bb, _ = run("search bottleneck B", make_train_step(
+        bdarts, bcv, g, generator=gen, supernet=True), bstate, bdev_b)
+    eb = [float(m["expected_bottleneck"]) for m in ms_bb]
+    dims, _ = extract_bottlenecks(
+        bstate.alphas["bottleneck"].cpu().numpy(),
+        bdarts.bottleneck_candidates, top_k=1)[0]
+    print(f"[search bottleneck] expected_bottleneck per step: "
+          + " ".join(f"{v:.2f}" for v in eb) + f"; extracted dims {dims}",
+          flush=True)
+    _check(all(np.isfinite(eb)), "expected_bottleneck finite")
+    _check(len(dims) == bdarts.num_layers
+           and all(d in BOTTLENECK_DIMS for d in dims),
+           "extracted dims from BOTTLENECK_DIMS")
+    del bstate, btrain_b, bdev_b
+
+    # ---- 6.5 a float32 softmax supernet step, kernels vs plain den ----
+    f32 = darts.replace(base=base.replace(compute_dtype="float32"))
+    sm_cfg = TrainerConfig(objective=ChainObjectiveConfig(),
+                           optimizer=pre_cfg.optimizer,
+                           search_mode=SearchMode.SOFTMAX, train_alpha=True)
+    _, sm_b = batches(f32, 1)
+    st0 = init_train_state(f32, sm_cfg, torch.Generator().manual_seed(7), dev,
+                           supernet=True)
+    step32 = make_train_step(f32, sm_cfg, g, supernet=True)
+    _, m_k = step32(copy.deepcopy(st0), sm_b[0])
+    n_before = _dense_launches(ddc)
+    plain = lambda device: (ddc.dense_scan_fwd_plain,
+                            ddc.dense_scan_bwd_plain)
+    with mock.patch.object(ddc, "_scan_impl", plain):
+        _, m_p = step32(copy.deepcopy(st0), sm_b[0])
+    torch.cuda.synchronize()
+    _check(_dense_launches(ddc) == n_before,
+           "the plain supernet step launched no kernel")
+    d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
+    d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
+    print(f"[search f32 softmax step] objf_mmi kernel="
+          f"{float(m_k['objf_mmi']):.9g} plain={float(m_p['objf_mmi']):.9g} "
+          f"|d|={d_objf:.2e} (tol 1e-4); grad_norm kernel="
+          f"{float(m_k['grad_norm']):.9g} plain="
+          f"{float(m_p['grad_norm']):.9g} |d|={d_gn:.2e} (tol 1e-3 "
+          f"relative)", flush=True)
+    _check(d_objf <= 1e-4, "search f32 objf kernel vs plain")
+    _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
+           "search f32 grad_norm kernel vs plain")
+    return launches
 
 
 def main() -> int:
@@ -473,7 +720,16 @@ def main() -> int:
            "f32 grad_norm kernel vs plain")
 
     del state, st0, step, step32, batches, g
-    dense = _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng)
+    dense, dense_bundle, dense_g = _dense_phase(torch, dev, gpu, utts,
+                                                phone_seqs, topo, iv_rng)
+    search = _search_phase(
+        torch, dev, gpu, dense_bundle, dense_g,
+        TdnnfModelConfig(num_pdfs=2208, ivector_dim=0), batch_size=32,
+        expect_params=(51_494_904, 23_232_504))
+    for row, key in zip(dense, ("fwd", "bwd")):
+        print(f"[launches] {row['name']}: dense training {row['launches']}, "
+              f"search {search[key]}", flush=True)
+        row["launches"] += search[key]
 
     kernels = [
         {"name": "blocked_den_fwd", "route": "cuda",

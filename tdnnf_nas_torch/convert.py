@@ -1,9 +1,10 @@
 """Converters between the JAX package's state and the port's tensors.
 
-The JAX package keeps ``params``, ``bn_state`` and Adam's ``m``/``v`` as
-nested dicts of arrays; callers hand them over as nested dicts of numpy
-arrays (``jax.tree.map(np.asarray, tree)``), so this module never sees a
-JAX array.  Keys and layouts carry over one to one, including the
+The JAX package keeps ``params``, ``bn_state``, a supernet's ``alphas``
+and each Adam state's ``m``/``v`` as nested dicts of arrays; callers
+hand them over as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, tree)``), so this module never sees a JAX
+array.  Keys and layouts carry over one to one, including the
 [K, F, D] spliced-weight layout.
 """
 
@@ -31,25 +32,51 @@ def tree_to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
+def _adam_to_torch(opt_state, device):
+    return {"m": tree_to_torch(opt_state["m"], device),
+            "v": tree_to_torch(opt_state["v"], device)}
+
+
+def _adam_to_numpy(opt_state):
+    return {"m": tree_to_numpy(opt_state["m"]),
+            "v": tree_to_numpy(opt_state["v"])}
+
+
 def train_state_from_numpy(params, bn_state, opt_state, step: int,
                            device="cpu") -> TrainState:
     """TrainState from the JAX package's (numpy) params, bn_state and Adam
     state ``{"m": ..., "v": ...}``."""
-    return TrainState(
-        params=tree_to_torch(params, device),
-        bn_state=tree_to_torch(bn_state, device),
-        opt_state={"m": tree_to_torch(opt_state["m"], device),
-                   "v": tree_to_torch(opt_state["v"], device)},
-        step=int(step))
+    return TrainState(params=tree_to_torch(params, device),
+                      bn_state=tree_to_torch(bn_state, device),
+                      opt_state=_adam_to_torch(opt_state, device),
+                      step=int(step))
 
 
 def train_state_to_numpy(state: TrainState):
     """(params, bn_state, {"m", "v"}, step) as numpy, the inverse of
     :func:`train_state_from_numpy`."""
     return (tree_to_numpy(state.params), tree_to_numpy(state.bn_state),
-            {"m": tree_to_numpy(state.opt_state["m"]),
-             "v": tree_to_numpy(state.opt_state["v"])},
-            state.step)
+            _adam_to_numpy(state.opt_state), state.step)
+
+
+def supernet_state_from_numpy(params, alphas, bn_state, opt_state,
+                              alpha_opt_state, step: int,
+                              device="cpu") -> TrainState:
+    """TrainState of a supernet from the JAX package's (numpy) fields, in
+    the order of its TrainState: params, alphas, bn_state, the params'
+    and the alphas' Adam states ``{"m", "v"}``, step."""
+    return dataclasses.replace(
+        train_state_from_numpy(params, bn_state, opt_state, step, device),
+        alphas=tree_to_torch(alphas, device),
+        alpha_opt_state=_adam_to_torch(alpha_opt_state, device))
+
+
+def supernet_state_to_numpy(state: TrainState):
+    """(params, alphas, bn_state, opt_state, alpha_opt_state, step) as
+    numpy, the inverse of :func:`supernet_state_from_numpy`."""
+    return (tree_to_numpy(state.params), tree_to_numpy(state.alphas),
+            tree_to_numpy(state.bn_state), _adam_to_numpy(state.opt_state),
+            _adam_to_numpy(state.alpha_opt_state), state.step)
 
 
 def batch_to_torch(batch: dict, device="cpu"):

@@ -1,1 +1,1 @@
-"""Config base (numpy/stdlib)."""
+"""Config base (numpy/stdlib) and the deferred metrics logger."""

@@ -131,8 +131,7 @@ def init_model(cfg: TdnnfModelConfig, generator: torch.Generator,
     """
 
     def normal(shape, fan_in):
-        return (torch.randn(shape, generator=generator)
-                / np.sqrt(fan_in)).to(device)
+        return _linear_init(generator, shape, fan_in, device)
 
     def zeros(*shape):
         return torch.zeros(shape, device=device)
@@ -167,10 +166,20 @@ def init_model(cfg: TdnnfModelConfig, generator: torch.Generator,
             "w": zeros(cfg.prefinal_small, cfg.num_pdfs),
             "b": zeros(cfg.num_pdfs),
         }
-    bn_state = {name: {"mean": zeros(dim),
-                       "var": torch.ones(dim, device=device)}
-                for name, dim in _bn_dims(cfg)}
-    return params, bn_state
+    return params, _init_bn_state(cfg, device)
+
+
+def _linear_init(generator: torch.Generator, shape, in_dim: int, device):
+    """N(0, 1/in_dim) float32 weights, drawn on the host's generator."""
+    return (torch.randn(shape, generator=generator)
+            / np.sqrt(in_dim)).to(device)
+
+
+def _init_bn_state(cfg: TdnnfModelConfig, device):
+    """Batchnorm running stats: mean 0, var 1 for every normalized layer."""
+    return {name: {"mean": torch.zeros(dim, device=device),
+                   "var": torch.ones(dim, device=device)}
+            for name, dim in _bn_dims(cfg)}
 
 
 def _batchnorm(x: torch.Tensor, stats, train: bool):
@@ -195,42 +204,46 @@ def _batchnorm(x: torch.Tensor, stats, train: bool):
     return ((x - mean) * inv).to(x.dtype), new_stats
 
 
+def _dropout_keep(p) -> np.float32:
+    """Keep probability 1 - p in float32, as the reference computes it."""
+    return np.float32(1.0) - np.float32(p)
+
+
+def _apply_dropout(x: torch.Tensor, mask: torch.Tensor, p) -> torch.Tensor:
+    """x * mask / max(1 - p, 1e-3), mask and scale cast to x's dtype
+    first, as the reference does; ``p`` may be a host float from the
+    dropout schedule."""
+    keep = max(_dropout_keep(p), np.float32(1e-3))
+    scale = torch.tensor(keep, dtype=torch.float32,
+                         device=x.device).to(x.dtype)
+    return x * mask.to(x.dtype) / scale
+
+
 def _dropout(x: torch.Tensor, p, generator: Optional[torch.Generator],
              train: bool):
     """Per-dim dropout mask shared across time (Kaldi's
-    GeneralDropoutComponent)."""
+    GeneralDropoutComponent); no dropout without a generator."""
     if not train or generator is None or p <= 0.0:
         return x
-    keep = 1.0 - float(p)
     mask = torch.bernoulli(
-        torch.full((x.shape[0], 1, x.shape[-1]), keep, device=x.device),
-        generator=generator)
-    return x * mask.to(x.dtype) / max(keep, 1e-3)
+        torch.full((x.shape[0], 1, x.shape[-1]), float(_dropout_keep(p)),
+                   device=x.device), generator=generator)
+    return _apply_dropout(x, mask, p)
 
 
-def apply_model(
-    cfg: TdnnfModelConfig,
-    params,
-    bn_state,
-    feats: torch.Tensor,
-    ivectors: Optional[torch.Tensor] = None,
-    train: bool = False,
-    generator: Optional[torch.Generator] = None,
-):
-    """Forward pass.
+def _bypass(cur: torch.Tensor, prev: torch.Tensor, scale: float):
+    """The TDNN-F bypass cur + scale * prev, the scale cast to cur's dtype
+    before it multiplies, as the reference does (in bf16 it scales by
+    bf16(0.66) = 0.66015625)."""
+    return cur + torch.tensor(scale, dtype=cur.dtype, device=cur.device) * prev
 
-    feats: [B, T_in, feat_dim] (T_in from chunk_input_frames());
-    ivectors: [B, ivector_dim] when cfg.ivector_dim > 0; ``generator``
-    draws the dropout masks (no dropout without one).
 
-    Returns (chain_logits [B, T_out, P], xent_logits [B, T_out, P],
-    new_bn_state) at the subsampled rate, logits in float32.
-    """
+def _input_layers(cfg: TdnnfModelConfig, params, bn_state, new_bn, feats,
+                  ivectors, bn_train: bool) -> torch.Tensor:
+    """lda (splice -1,0,1 + appended constant-t ivector, fixed affine) and
+    tdnn1 (affine, ReLU, batchnorm); writes tdnn1's stats into new_bn.
+    Shared by the plain model and the supernet."""
     dt = cfg.dtype
-    new_bn = {}
-    dp = cfg.dropout_proportion
-
-    # lda: splice (-1,0,1) + appended constant-t ivector, fixed affine
     t_spliced = feats.shape[1] - 2
     spl = torch.cat([feats[:, o + 1: o + 1 + t_spliced] for o in (-1, 0, 1)],
                     dim=-1)
@@ -242,11 +255,36 @@ def apply_model(
         spl = torch.cat([spl, iv], dim=-1)
     x = (torch.matmul(spl.to(dt), params["lda"]["w"].to(dt)).float()
          + params["lda"]["b"]).to(dt)
-
     x = (torch.matmul(x, params["tdnn1"]["w"].to(dt)).float()
          + params["tdnn1"]["b"]).to(dt)
     x = torch.relu(x)
-    x, new_bn["tdnn1"] = _batchnorm(x, bn_state["tdnn1"], train)
+    x, new_bn["tdnn1"] = _batchnorm(x, bn_state["tdnn1"], bn_train)
+    return x
+
+
+def apply_model(
+    cfg: TdnnfModelConfig,
+    params,
+    bn_state,
+    feats: torch.Tensor,
+    ivectors: Optional[torch.Tensor] = None,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    dropout_p: Optional[float] = None,
+):
+    """Forward pass.
+
+    feats: [B, T_in, feat_dim] (T_in from chunk_input_frames());
+    ivectors: [B, ivector_dim] when cfg.ivector_dim > 0; ``generator``
+    draws the dropout masks (no dropout without one); ``dropout_p``
+    overrides the config's proportion (the trainer's schedule).
+
+    Returns (chain_logits [B, T_out, P], xent_logits [B, T_out, P],
+    new_bn_state) at the subsampled rate, logits in float32.
+    """
+    new_bn = {}
+    dp = cfg.dropout_proportion if dropout_p is None else dropout_p
+    x = _input_layers(cfg, params, bn_state, new_bn, feats, ivectors, train)
     x = _dropout(x, dp, generator, train)
 
     chain, xent = tdnnf_stack_and_heads(cfg, params, bn_state, new_bn, x,
@@ -290,7 +328,7 @@ def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
         cur, new_bn[name] = _batchnorm(cur, bn_state[name], train)
         cur = _dropout(cur, dropout_p, generator, train)
         prev = x[:, l: x.shape[1] - r] if (l or r) else x
-        x = cur + cfg.bypass_scale * prev
+        x = _bypass(cur, prev, cfg.bypass_scale)
 
     if not subsampled and fs > 1:
         x = x[:, 0::fs]

@@ -2,8 +2,11 @@
 
 Exponential LR schedule (`steps/libs/nnet3/train/common.py:606`), Adam
 with Kaldi's per-component (0.75) and global (2.0) max-param-change
-clipping of the update, and decoupled weight decay.  The ``sgd``,
-``adafactor`` and ``ng`` kinds are not ported yet.
+clipping of the update, and decoupled weight decay.  Architecture logits
+get their own LR scale (``alpha_lr_scale``, the explicit form of the
+reference's x10000 alpha-grad scale with LearningRateFactor 1e-4,
+`nnet-tdnn-component.cc:588-590`).  The ``sgd``, ``adafactor`` and ``ng``
+kinds are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ class OptimizerConfig(Config):
     max_change_per_leaf: float = 0.75  # Kaldi per-component max-change
     max_change_global: float = 2.0  # Kaldi --trainer.max-param-change
     l2_regularize: float = 0.0  # decoupled weight decay (per-leaf scalable)
+    alpha_lr_scale: float = 1.0
 
 
 def learning_rate_at(step: int, cfg: OptimizerConfig) -> float:
@@ -66,7 +70,8 @@ def make_optimizer(
     """Returns (init_fn, update_fn).
 
     init_fn(params) -> opt_state {"m": ..., "v": ...}
-    update_fn(grads, opt_state, params, step) -> (new_params, new_opt_state)
+    update_fn(grads, opt_state, params, step, lr_scale=1.0)
+        -> (new_params, new_opt_state)
 
     ``grads`` is a list in :func:`tree_paths` order of ``params``; ``step``
     is a host int.  wd_scale_fn(path) -> relative weight-decay multiplier
@@ -82,8 +87,8 @@ def make_optimizer(
         return {"m": zeros(), "v": zeros()}
 
     @torch.no_grad()
-    def update_fn(grads, opt_state, params, step: int):
-        lr = learning_rate_at(step, cfg)
+    def update_fn(grads, opt_state, params, step: int, lr_scale=1.0):
+        lr = learning_rate_at(step, cfg) * lr_scale
         pl = tree_paths(params)
         ms = [x for _, x in tree_paths(opt_state["m"])]
         vs = [x for _, x in tree_paths(opt_state["v"])]
