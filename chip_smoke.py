@@ -16,15 +16,19 @@ plain PyTorch versions.  Phases, each raising on failure:
   1. flagship host setup (the ``bench.py`` setup, through the port's own
      numpy host modules): 10,271 den states, 18,751,248 params;
   2. kernel vs plain at the flagship den shape, float32 and bf16 obs,
-     with each tolerance and its reason; kernel and plain timings;
+     with each tolerance and its reason; kernel and plain timings, the
+     scan's block products alone in cuBLAS (``library_ms``), the bound
+     and the device launches of one scan (profiler);
   3. training: launch counters reset, then 8 bf16 steps with
      ``den_obs_bf16``; objf finite at every step, both kernels launched
-     once per step; ms/step;
+     once per step; ms/step and the device kernel launches of one step
+     (profiler);
   4. one float32 step through the kernels against the same step through
      the plain den, from the same state;
   5. the dense biphone flagship on phase 1's corpus: host setup (2,208
      den states and pdfs, 16,784,684 params); dense-den kernels vs plain
-     at B=64, T=50, S=2,208 in float32, with timings; launch counters
+     at B=64, T=50, S=2,208 in float32, with timings, ``library_ms``, the
+     bound and the device launches of one scan; launch counters
      reset, then 6 bf16 steps with the default objective config (objf
      and grad_norm finite, both kernels launched once per step, ms/step);
      one float32 kernel step against the same step through the plain den;
@@ -42,7 +46,8 @@ plain PyTorch versions.  Phases, each raising on failure:
      first.
 
 Prints the card's name and power limit, one JSON line of per-kernel
-results, and as its last line
+results (with ``bound_ms``, ``bound_by``, ``library_ms`` and
+``launches_per_scan``), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
 
@@ -90,6 +95,45 @@ def _cuda_ms(torch, fn, reps: int = 3) -> float:
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"smoke check failed: {what}")
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet) for bound_ms:
+# float32 outside the tensor cores, and device memory.
+_PEAK_F32_FLOPS = 67e12
+_PEAK_BYTES = 3.35e12
+
+
+def _bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of operations over the float32
+    peak and bytes over the memory rate."""
+    t_ops, t_mem = flops / _PEAK_F32_FLOPS, nbytes / _PEAK_BYTES
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+def _device_launches(torch, fn):
+    """Device kernels one fn() call launches (memsets and copies apart),
+    read from torch.profiler after a warm-up call; None if the profiler
+    sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memset", "Memcpy"))]
+    return len(kernels) if dev else None
+
+
+def _library_ms(torch, mm, t: int) -> float:
+    """Device time of a scan's products alone through cuBLAS: t - 1 calls
+    of mm(), timed over the whole loop (the yardstick; the port never
+    calls it)."""
+    return _cuda_ms(torch, lambda: [mm() for _ in range(t - 1)])
 
 
 def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
@@ -185,7 +229,32 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
           f"S={g.trans.shape[0]}] fwd kernel {times['fwd']:.3f} ms vs plain "
           f"{times['fwd_plain']:.3f} ms; bwd kernel {times['bwd']:.3f} ms vs "
           f"plain {times['bwd_plain']:.3f} ms ({gpu})", flush=True)
-    del al_k, al_k2, al_p, gr_k, gr_k2, gr_p, logits
+    # yardstick: the scan's products alone in cuBLAS (float32, TF32 off);
+    # bound: 2*B*S^2 flops a product frame against obs, alphas (and grad)
+    # and trans moved once
+    s = g.trans.shape[0]
+    x = torch.rand(batch_size, s, device=dev)
+    y = torch.empty_like(x)
+    lib = {"fwd": _library_ms(torch, lambda: torch.mm(x, g.trans, out=y),
+                              chunk_width),
+           "bwd": _library_ms(torch, lambda: torch.mm(x, g.trans.T, out=y),
+                              chunk_width)}
+    flops = 2.0 * batch_size * s * s * (chunk_width - 1)
+    plane = 4.0 * batch_size * chunk_width * s
+    bound = {"fwd": _bound(flops, 2 * plane + 4.0 * s * s),
+             "bwd": _bound(flops, 3 * plane + 4.0 * s * s)}
+    per_scan = {
+        "fwd": _device_launches(torch, lambda: ddc.dense_den_fwd_cuda(
+            obs, g.trans, g.init, g.final, leaky)),
+        "bwd": _device_launches(torch, lambda: ddc.dense_den_bwd_cuda(
+            obs, g.trans_T, g.final, al_k, cs_k, gbar)),
+    }
+    for k in ("fwd", "bwd"):
+        print(f"[dense den {k}] kernel {times[k]:.3f} ms; cuBLAS products "
+              f"alone {lib[k]:.3f} ms; bound {bound[k][0]:.3f} ms "
+              f"({bound[k][1]}); device launches per scan {per_scan[k]} "
+              f"({gpu})", flush=True)
+    del al_k, al_k2, al_p, gr_k, gr_k2, gr_p, logits, x, y
 
     # ---- 5.3 training: the dense main path (a dense den always takes
     # the kernels; the default config shows no switch is needed) ----
@@ -261,11 +330,15 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
         {"name": "dense_den_fwd", "route": "cuda", "source": src,
          "replaces": f"{_TPU_KERNELS}:74", "launches": launches["fwd"],
          "max_abs_err": err_z, "ms": times["fwd"],
-         "plain_ms": times["fwd_plain"]},
+         "plain_ms": times["fwd_plain"], "bound_ms": bound["fwd"][0],
+         "bound_by": bound["fwd"][1], "library_ms": lib["fwd"],
+         "launches_per_scan": per_scan["fwd"]},
         {"name": "dense_den_bwd", "route": "cuda", "source": src,
          "replaces": f"{_TPU_KERNELS}:110", "launches": launches["bwd"],
          "max_abs_err": err_g, "ms": times["bwd"],
-         "plain_ms": times["bwd_plain"]},
+         "plain_ms": times["bwd_plain"], "bound_ms": bound["bwd"][0],
+         "bound_by": bound["bwd"][1], "library_ms": lib["bwd"],
+         "launches_per_scan": per_scan["bwd"]},
     ]
     return rows, bundle, g
 
@@ -632,11 +705,39 @@ def main() -> int:
             times["bwd_plain"] = _cuda_ms(
                 torch, lambda: bdc.blocked_scan_bwd_plain(
                     obs_v, g, al_p, cs_p, gbar))
+            # yardstick: the scan's block products alone in cuBLAS
+            # (float32, TF32 off); bound: 2*B*C*NSRC*NDP flops a product
+            # frame against obs, alphas (and grad) and W moved once
+            x = torch.rand(c, batch_size, ndp, device=dev)
+            y = torch.empty(c, batch_size, ndp, device=dev)
+            xs = x[:, :, :nsrc].contiguous()
+            ys = torch.empty_like(xs)
+            lib = {"fwd": _library_ms(torch, lambda: torch.bmm(
+                       xs, g.w_blocks, out=y), chunk_width),
+                   "bwd": _library_ms(torch, lambda: torch.bmm(
+                       x, g.w_blocks.transpose(1, 2), out=ys), chunk_width)}
+            flops = 2.0 * batch_size * c * nsrc * ndp * (chunk_width - 1)
+            n_obs = batch_size * chunk_width * c * ndp
+            w_bytes = 4.0 * c * nsrc * ndp
+            bound = {"fwd": _bound(flops, 6.0 * n_obs + w_bytes),
+                     "bwd": _bound(flops, 8.0 * n_obs + w_bytes)}
+            per_scan = {
+                "fwd": _device_launches(
+                    torch, lambda: bdc.blocked_den_fwd_cuda(obs_v, g, leaky)),
+                "bwd": _device_launches(
+                    torch, lambda: bdc.blocked_den_bwd_cuda(
+                        obs_v, g, al_k, cs_k, gbar)),
+            }
+            del x, y, xs, ys
         del al_k, al_k2, al_p, gr_k, gr_k2, gr_p
     print(f"[den timing, bf16 obs, B={batch_size} T={chunk_width} "
           f"V={c * ndp}] fwd kernel {times['fwd']:.3f} ms vs plain "
           f"{times['fwd_plain']:.3f} ms; bwd kernel {times['bwd']:.3f} ms vs "
           f"plain {times['bwd_plain']:.3f} ms ({gpu})", flush=True)
+    for k in ("fwd", "bwd"):
+        print(f"[den {k}] kernel {times[k]:.3f} ms; cuBLAS products alone "
+              f"{lib[k]:.3f} ms; bound {bound[k][0]:.3f} ms ({bound[k][1]}); "
+              f"device launches per scan {per_scan[k]} ({gpu})", flush=True)
 
     # ---- 3. training: the main path ----
     trainer_cfg = TrainerConfig(
@@ -679,12 +780,20 @@ def main() -> int:
            "grad_norm finite")
     _check(launches["fwd"] == launches["bwd"] == n_warm + n_timed,
            "both kernels launched once per step")
+    held = [state]
+
+    def one_step():
+        held[0], _ = step(held[0], batches[0])
+
+    step_kernels = _device_launches(torch, one_step)
     print(f"[train] {dt * 1e3:.2f} ms/step over {n_timed} steps "
           f"(bf16, den_obs_bf16, B={batch_size}x150 frames) = "
           f"{batch_size * chunk_width * 3 * 0.010 / dt:.1f} audio-s/s; "
           f"peak mem {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-          f"launches fwd={launches['fwd']} bwd={launches['bwd']} ({gpu})",
+          f"launches fwd={launches['fwd']} bwd={launches['bwd']}; device "
+          f"kernel launches per step {step_kernels} (profile) ({gpu})",
           flush=True)
+    del held
 
     # ---- 4. kernel step vs plain step, float32 ----
     # The objective is a mean over 3,200 frames of logZ differences of a
@@ -736,12 +845,16 @@ def main() -> int:
          "source": "tdnnf_nas_torch/csrc/blocked_den.cu",
          "replaces": f"{_TPU_KERNELS}:282", "launches": launches["fwd"],
          "max_abs_err": errs["fwd"], "ms": times["fwd"],
-         "plain_ms": times["fwd_plain"]},
+         "plain_ms": times["fwd_plain"], "bound_ms": bound["fwd"][0],
+         "bound_by": bound["fwd"][1], "library_ms": lib["fwd"],
+         "launches_per_scan": per_scan["fwd"]},
         {"name": "blocked_den_bwd", "route": "cuda",
          "source": "tdnnf_nas_torch/csrc/blocked_den.cu",
          "replaces": f"{_TPU_KERNELS}:343", "launches": launches["bwd"],
          "max_abs_err": errs["bwd"], "ms": times["bwd"],
-         "plain_ms": times["bwd_plain"]},
+         "plain_ms": times["bwd_plain"], "bound_ms": bound["bwd"][0],
+         "bound_by": bound["bwd"][1], "library_ms": lib["bwd"],
+         "launches_per_scan": per_scan["bwd"]},
     ] + dense
     print(gpu)
     print(json.dumps({"kernels": kernels}))

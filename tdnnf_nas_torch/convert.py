@@ -15,11 +15,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.train.trainer import TrainState
 
 
-def tree_to_torch(tree, device="cpu"):
+def tree_to_torch(tree, device=DEFAULT_DEVICE):
     """Nested dict of numpy arrays -> same structure of tensors."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device) for k, v in tree.items()}
     return torch.tensor(np.asarray(tree), device=device)
@@ -43,7 +45,7 @@ def _adam_to_numpy(opt_state):
 
 
 def train_state_from_numpy(params, bn_state, opt_state, step: int,
-                           device="cpu") -> TrainState:
+                           device=DEFAULT_DEVICE) -> TrainState:
     """TrainState from the JAX package's (numpy) params, bn_state and Adam
     state ``{"m": ..., "v": ...}``."""
     return TrainState(params=tree_to_torch(params, device),
@@ -61,7 +63,7 @@ def train_state_to_numpy(state: TrainState):
 
 def supernet_state_from_numpy(params, alphas, bn_state, opt_state,
                               alpha_opt_state, step: int,
-                              device="cpu") -> TrainState:
+                              device=DEFAULT_DEVICE) -> TrainState:
     """TrainState of a supernet from the JAX package's (numpy) fields, in
     the order of its TrainState: params, alphas, bn_state, the params'
     and the alphas' Adam states ``{"m", "v"}``, step."""
@@ -79,8 +81,9 @@ def supernet_state_to_numpy(state: TrainState):
             _adam_to_numpy(state.alpha_opt_state), state.step)
 
 
-def batch_to_torch(batch: dict, device="cpu"):
+def batch_to_torch(batch: dict, device=DEFAULT_DEVICE):
     """Host numpy batch (``data.egs.batch_iterator``) -> tensors on device."""
+    device = resolve_device(device)
 
     def dev(a):
         return torch.as_tensor(a).to(device)

@@ -668,3 +668,32 @@ def _build_biphone(lm: PhoneLM, topo: ChainTopology, tree: BiphoneTree) -> State
     )
     g.validate()
     return g
+
+
+def random_blocked_graph(rng, c, nsrc, ndpos, r, num_pdfs):
+    """A random graph in the blocked layout (C superblocks, NSRC source
+    and NDPOS enter positions, R enter slots each, num_pdfs pdfs): injective
+    perm with pad source slots, row-stochastic W rows, zero columns on
+    unused enter slots.  For the kernels' tests and tools."""
+    ndp = r * ndpos + nsrc
+    cs, cnd = c * nsrc, c * ndpos
+    perm = np.full(cs, cnd, np.int64)
+    src = rng.permutation(cs)[: min(cs, cnd) * 9 // 10]
+    dst = rng.permutation(cnd)[: len(src)]
+    perm[src] = dst
+    perm_inv = np.full(cnd, cs, np.int64)
+    perm_inv[dst] = src
+    w = rng.rand(c, nsrc, ndp) * (rng.rand(c, nsrc, ndp) < 0.3)
+    w[:, :, : r * ndpos] *= (rng.rand(r * ndpos) < 0.8)  # unused slots
+    w /= np.maximum(w.sum(-1, keepdims=True), 1e-9)
+    v = c * ndp
+    init_v = rng.rand(v) * (w.sum(1).reshape(-1) > 0)
+    return BlockedDenGraph(
+        w_blocks=w.astype(np.float32), perm=perm.astype(np.int32),
+        perm_inv=perm_inv.astype(np.int32),
+        init_pos=rng.rand(cs).astype(np.float32) / cs,
+        pdf_virtual=rng.randint(0, num_pdfs, v).astype(np.int32),
+        init_virtual=(init_v / init_v.sum()).astype(np.float32),
+        final_virtual=np.ones(v, np.float32),
+        bcast_sel=None, bcast_vec=None, enter_pad=r, num_states=v,
+        num_pdfs=num_pdfs)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from tdnnf_nas_torch.core.config import Config
+from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.models import tdnnf as base
 from tdnnf_nas_torch.ops.tdnn import spliced_linear
 
@@ -109,7 +110,7 @@ def _fixed_pairs(cfg: DartsModelConfig):
 
 
 def init_supernet(cfg: DartsModelConfig, generator: torch.Generator,
-                  device="cpu"):
+                  device=DEFAULT_DEVICE):
     """Returns (params, alphas, bn_state) dicts of float32 tensors.
 
     alphas: {"offsets_linear": [L, K], "offsets_affine": [L, K],
@@ -117,6 +118,7 @@ def init_supernet(cfg: DartsModelConfig, generator: torch.Generator,
     keys, shapes and init scheme as the JAX package; the weights come from
     ``generator`` and so differ from jax.random's.
     """
+    device = resolve_device(device)
     b = cfg.base
 
     def normal(shape, fan_in):

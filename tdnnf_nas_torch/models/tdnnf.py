@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from tdnnf_nas_torch.core.config import Config
+from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.ops.tdnn import spliced_linear
 
 BN_EPS = 1e-3  # Kaldi BatchNormComponent default epsilon
@@ -122,13 +123,14 @@ def _bn_dims(cfg: TdnnfModelConfig):
 
 
 def init_model(cfg: TdnnfModelConfig, generator: torch.Generator,
-               device="cpu"):
+               device=DEFAULT_DEVICE):
     """Returns (params, bn_state) dicts of float32 tensors on ``device``.
 
     Same shapes and init scheme as the JAX package (N(0, 1/fan_in)
     weights, zero biases and output layers, identity lda); the random
     draws come from ``generator`` and so differ from jax.random's.
     """
+    device = resolve_device(device)
 
     def normal(shape, fan_in):
         return _linear_init(generator, shape, fan_in, device)

@@ -5,16 +5,25 @@ The forward scan and its exact adjoint replace the Pallas pair
 (``tdnnf_nas_tpu/ops/pallas_fwdbwd.py``) and compute what the XLA twin
 ``_blocked_score_core`` (``tdnnf_nas_tpu/ops/fwdbwd.py``) computes.  The
 kernels live in ``csrc/blocked_den.cu``; the source note there says what
-bounds them on an H100 (about 1.3 GFLOP of float32 block product per
-flagship frame against a 40.5 MB W that fits L2) and how they are laid out.
+bounds them on an H100 (about 1.3 GFLOP of float32-accurate block product
+per flagship frame against a 40.5 MB W that fits L2) and how they are laid
+out: one persistent cooperative launch per scan, the block product as
+3xTF32 on the tensor cores.
 
 Build: at first use, by ``ops/cuda_build.py`` (nvcc for sm_90a into the
 git-ignored ``tdnnf_nas_torch/_build/``, keyed on a hash of the source),
-loaded with ctypes.  Each direction is one C call that runs the whole
-T-loop on the current stream.
+loaded with ctypes.  Each direction is one C call: a memset of its
+scratch and one cooperative launch on the current stream.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  There is no fallback.
+
+Beside the plain versions, ``blocked_scan_fwd_emulated`` /
+``blocked_scan_bwd_emulated`` repeat the kernels' own arithmetic in torch
+(3xTF32 products, deferred normalization, the adjoint's split partial
+sums and its row dot through the gathered alphas), so the CPU tests can
+hold the design against the plain scan.  Nothing on the main path calls
+them.
 """
 
 from __future__ import annotations
@@ -34,6 +43,34 @@ _SRC = cuda_build.CSRC / "blocked_den.cu"
 
 # ------------------------------------------------------------ plain versions
 
+def _dims(g):
+    c, nsrc, ndp = g.w_blocks.shape
+    r = g.enter_pad
+    return c, nsrc, ndp, r, (ndp - nsrc) // r
+
+
+def _gather_beta(alpha: torch.Tensor, g) -> torch.Tensor:
+    """beta [B, C*NSRC] without the leaky term: for each source slot the
+    sum of its R enter slots (through ``perm``) plus its loop slot."""
+    b = alpha.shape[0]
+    c, nsrc, ndp, r, ndpos = _dims(g)
+    a3 = alpha.reshape(b, c, ndp)
+    beta_dst = a3[:, :, : r * ndpos].reshape(b, c, r, ndpos).sum(2)
+    beta_dst = beta_dst.reshape(b, c * ndpos)
+    a_loop = a3[:, :, r * ndpos:].reshape(b, c * nsrc)
+    return F.pad(beta_dst, (0, 1))[:, g.perm.long()] + a_loop
+
+
+def _assemble(u: torch.Tensor, g) -> torch.Tensor:
+    """[B, C*NSRC] -> [B, V]: the inverse permutation (sentinel reads
+    zero) broadcast to the R enter slots, and the loop slice."""
+    b = u.shape[0]
+    c, nsrc, ndp, r, ndpos = _dims(g)
+    gbd = F.pad(u, (0, 1))[:, g.perm_inv.long()].reshape(b, c, 1, ndpos)
+    ent = gbd.expand(b, c, r, ndpos).reshape(b, c, r * ndpos)
+    return torch.cat([ent, u.reshape(b, c, nsrc)], dim=-1).reshape(b, -1)
+
+
 def blocked_scan_fwd_plain(obs_virtual: torch.Tensor, g, leaky: float):
     """Forward recursion as a Python loop over T.
 
@@ -41,20 +78,13 @@ def blocked_scan_fwd_plain(obs_virtual: torch.Tensor, g, leaky: float):
     Returns (logz [B], alphas [T, B, V] normalized, cs [T, B] scales).
     """
     b, t, v = obs_virtual.shape
-    c, nsrc, ndp = g.w_blocks.shape
-    r = g.enter_pad
-    ndpos = (ndp - nsrc) // r
-    perm = g.perm.long()
+    c, nsrc, _, _, _ = _dims(g)
     a0 = g.init_virtual[None, :] * obs_virtual[:, 0]
     c0 = torch.clamp(a0.sum(dim=-1), min=_TINY)
     alpha = a0 / c0[:, None]
     alphas, cs = [alpha], [c0]
     for ti in range(1, t):
-        a3 = alpha.reshape(b, c, ndp)
-        beta_dst = a3[:, :, : r * ndpos].reshape(b, c, r, ndpos).sum(2)
-        beta_dst = beta_dst.reshape(b, c * ndpos)
-        a_loop = a3[:, :, r * ndpos:].reshape(b, c * nsrc)
-        beta = F.pad(beta_dst, (0, 1))[:, perm] + a_loop
+        beta = _gather_beta(alpha, g)
         if leaky > 0.0:
             beta = beta + leaky * g.init_pos[None, :]
         a = torch.einsum("bcs,csd->bcd", beta.reshape(b, c, nsrc),
@@ -85,10 +115,7 @@ def blocked_scan_bwd_plain(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
     Returns grad [B, T, V].
     """
     b, t, v = obs_virtual.shape
-    c, nsrc, ndp = g.w_blocks.shape
-    r = g.enter_pad
-    ndpos = (ndp - nsrc) // r
-    perm_inv = g.perm_inv.long()
+    c, nsrc, ndp, _, _ = _dims(g)
     gb = gbar.float()[:, None]
     obs = obs_virtual.float()
 
@@ -97,9 +124,7 @@ def blocked_scan_bwd_plain(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
                          g.w_blocks).reshape(b, c * nsrc)
         if g.bcast_sel is not None:
             u = u + (vv @ g.bcast_vec.T) @ g.bcast_sel.T
-        gbd = F.pad(u, (0, 1))[:, perm_inv].reshape(b, c, 1, ndpos)
-        ent = gbd.expand(b, c, r, ndpos).reshape(b, c, r * ndpos)
-        return torch.cat([ent, u.reshape(b, c, nsrc)], dim=-1).reshape(b, v)
+        return _assemble(u, g)
 
     def g_obs_frame(alpha_t, bar_t, obs_t):
         return (alpha_t * bar_t / torch.clamp(obs_t, min=1e-30)).to(
@@ -120,24 +145,165 @@ def blocked_scan_bwd_plain(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
     return torch.stack(grads[::-1], dim=1)
 
 
+# ------------------------------------- the kernels' arithmetic (tests only)
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by dropping the 13 low mantissa bits, as the tensor
+    cores read a float32 register handed to them as TF32."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def split_tf32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as the kernels compute it on the tensor cores (3xTF32): each
+    operand split into hi = tf32(x) (round to nearest) and lo = x - hi,
+    which the tensor cores truncate to TF32; then lo@hi + hi@lo + hi@hi
+    accumulated in float32.  Error bound, as the source note of
+    ``csrc/blocked_den.cu`` states it: per element,
+    (2^-20 + 3K * 2^-24) * (|x| @ |w|) for depth K."""
+    xh, wh = tf32_round(x), tf32_round(w)
+    xl, wl = tf32_truncate(x - xh), tf32_truncate(w - wh)
+    return xl @ wh + xh @ wl + xh @ wh
+
+
+def _split_bounds(ndp: int, splits: int):
+    """The adjoint kernel's d-ranges: 32-wide chunks shared out evenly."""
+    chunks = -(-ndp // 32)
+    per = -(-chunks // splits)
+    return [(min(ndp, s * per * 32), min(ndp, (s + 1) * per * 32))
+            for s in range(splits)]
+
+
+def blocked_scan_fwd_emulated(obs_virtual: torch.Tensor, g, leaky: float):
+    """The forward kernel's arithmetic: deferred normalization (beta from
+    the unnormalized alpha, divided by the scale) and 3xTF32 block
+    products.  Same contract as :func:`blocked_scan_fwd_plain`; refuses a
+    wildcard term, as the kernels do."""
+    if g.bcast_sel is not None:
+        raise ValueError("the kernels have no wildcard (bcast) term")
+    b, t, v = obs_virtual.shape
+    c, nsrc, ndp, _, _ = _dims(g)
+    obs = obs_virtual.float()
+    a = g.init_virtual[None, :] * obs[:, 0]
+    alphas, cs = [], []
+    for ti in range(1, t):
+        cn = torch.clamp(a.sum(dim=-1), min=_TINY)
+        rc = (1.0 / cn)[:, None]
+        alphas.append(a * rc)
+        cs.append(cn)
+        beta = _gather_beta(a, g) * rc
+        if leaky > 0.0:
+            beta = beta + leaky * g.init_pos[None, :]
+        prod = split_tf32_matmul(beta.reshape(b, c, nsrc).transpose(0, 1),
+                                 g.w_blocks)
+        a = prod.transpose(0, 1).reshape(b, v) * obs[:, ti]
+    cn = torch.clamp(a.sum(dim=-1), min=_TINY)
+    alphas.append(a * (1.0 / cn)[:, None])
+    cs.append(cn)
+    cs = torch.stack(cs)
+    zfin = torch.clamp((a * g.final_virtual[None, :]).sum(dim=-1) / cn,
+                       min=_TINY)
+    return torch.log(cs).sum(dim=0) + torch.log(zfin), torch.stack(alphas), cs
+
+
+def blocked_scan_bwd_emulated(obs_virtual: torch.Tensor, g,
+                              alphas: torch.Tensor, cs: torch.Tensor,
+                              gbar: torch.Tensor, splits: int = 4):
+    """The adjoint kernel's arithmetic: u = v @ W^T in ``splits`` partial
+    sums over d (3xTF32 each), and the row dot g_t . alpha_t taken as
+    sum_j u[j] * beta0_t[j] from the partials (beta0_t the forward's
+    gather of alpha_t without leaky), which equals it because perm_inv
+    inverts perm.  Same contract as :func:`blocked_scan_bwd_plain`."""
+    if g.bcast_sel is not None:
+        raise ValueError("the kernels have no wildcard (bcast) term")
+    b, t, v = obs_virtual.shape
+    c, nsrc, ndp, _, _ = _dims(g)
+    gb = gbar.float()[:, None]
+    obs = obs_virtual.float()
+
+    def g_obs_frame(alpha_t, bar_t, obs_t):
+        return (alpha_t * bar_t / torch.clamp(obs_t, min=1e-30)).to(
+            obs_virtual.dtype)
+
+    s_fin = (alphas[-1] * g.final_virtual[None, :]).sum(-1, keepdim=True)
+    zfin = torch.clamp(s_fin, min=_TINY)
+    bar = (gb * g.final_virtual[None, :] * (1.0 / zfin)
+           - gb * (s_fin / zfin) + gb)
+    grads = [g_obs_frame(alphas[-1], bar, obs[:, -1])]
+    vcar = (bar * (1.0 / cs[-1])[:, None]) * obs[:, -1]
+    w_t = g.w_blocks.transpose(1, 2)
+    for ti in range(t - 2, -1, -1):
+        beta0 = _gather_beta(alphas[ti], g)
+        v3 = vcar.reshape(b, c, ndp).transpose(0, 1)
+        u = vcar.new_zeros(b, c * nsrc)
+        dot = vcar.new_zeros(b, 1)
+        for d0, d1 in _split_bounds(ndp, splits):
+            up = split_tf32_matmul(v3[:, :, d0:d1], w_t[:, d0:d1])
+            up = up.transpose(0, 1).reshape(b, c * nsrc)
+            u = u + up
+            dot = dot + (up * beta0).sum(-1, keepdim=True)
+        bar = _assemble(u, g) - dot + gb
+        grads.append(g_obs_frame(alphas[ti], bar, obs[:, ti]))
+        vcar = (bar * (1.0 / cs[ti])[:, None]) * obs[:, ti]
+    return torch.stack(grads[::-1], dim=1)
+
+
 # ----------------------------------------------------------- CUDA binding
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' shared library."""
     lib = cuda_build.load(_SRC)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.blocked_den_fwd_partials.argtypes = [i, i]
-    lib.blocked_den_fwd_partials.restype = i
-    lib.blocked_den_bwd_splits.argtypes = [i]
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    lib.blocked_den_fwd_scratch.argtypes = [i] * 4
+    lib.blocked_den_fwd_scratch.restype = ll
+    lib.blocked_den_bwd_splits.argtypes = [i] * 4
     lib.blocked_den_bwd_splits.restype = i
-    lib.blocked_den_fwd.argtypes = ([p, i, p, p, p, p, p, f] + [i] * 6
-                                    + [p] * 5 + [p])
-    lib.blocked_den_fwd.restype = i
-    lib.blocked_den_bwd.argtypes = ([p, i, p, p, p, p, p, p] + [i] * 6
+    lib.blocked_den_bwd_scratch.argtypes = [i] * 5
+    lib.blocked_den_bwd_scratch.restype = ll
+    lib.blocked_den_fwd.argtypes = ([p, i, p, p, p, p, p, f] + [i] * 7
                                     + [p] * 4 + [p])
+    lib.blocked_den_fwd.restype = i
+    lib.blocked_den_bwd.argtypes = ([p, i, p, p, p, p, p, p, p] + [i] * 8
+                                    + [p] * 2 + [p])
     lib.blocked_den_bwd.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_splits(device_index: int, b: int, c: int, nsrc: int,
+                ndp: int) -> int:
+    """The adjoint's d-splits on this device (as many as fill its SMs)."""
+    with torch.cuda.device(device_index):
+        s = _library().blocked_den_bwd_splits(b, c, nsrc, ndp)
+    if s < 1:
+        raise RuntimeError("blocked_den_bwd_splits: CUDA occupancy query "
+                           "failed")
+    return s
+
+
+def _w_rows16(g) -> torch.Tensor:
+    """W with its rows zero-padded to a multiple of 4 floats, so the kernels
+    move it in 16-byte copies; made once per graph and W version, kept on
+    the graph (its only copy when NDP is already a multiple of 4)."""
+    w = g.w_blocks
+    ndp = w.shape[2]
+    if ndp % 4 == 0:
+        return w
+    cached = g.__dict__.get("_w_rows16")
+    if cached is not None and cached[0] is w and cached[1] == w._version:
+        return cached[2]
+    padded = F.pad(w, (0, -ndp % 4)).contiguous()
+    g.__dict__["_w_rows16"] = (w, w._version, padded)
+    return padded
 
 
 def _check_cuda_inputs(obs_virtual: torch.Tensor, g) -> None:
@@ -151,11 +317,11 @@ def _check_cuda_inputs(obs_virtual: torch.Tensor, g) -> None:
         raise ValueError("obs must be a contiguous [B, T, V] tensor")
     c, nsrc, ndp = g.w_blocks.shape
     r = g.enter_pad
-    if obs_virtual.shape[2] != c * ndp or (ndp - nsrc) % r:
+    if obs_virtual.shape[2] != c * ndp or ndp <= nsrc or (ndp - nsrc) % r:
         raise ValueError(f"obs {tuple(obs_virtual.shape)} does not match "
                          f"the graph {tuple(g.w_blocks.shape)}, R={r}")
-    if obs_virtual.shape[1] < 1:
-        raise ValueError("need at least one frame")
+    if obs_virtual.shape[1] < 1 or obs_virtual.shape[0] < 1:
+        raise ValueError("need at least one frame and one row")
     for name, x, dt in (("w_blocks", g.w_blocks, torch.float32),
                         ("perm", g.perm, torch.int32),
                         ("perm_inv", g.perm_inv, torch.int32),
@@ -184,17 +350,18 @@ def blocked_den_fwd_cuda(obs_virtual: torch.Tensor, g, leaky: float):
     alphas = torch.empty((t, b, v), dtype=f32, device=dev)
     cs = torch.empty((t, b), dtype=f32, device=dev)
     logz = torch.empty((b,), dtype=f32, device=dev)
-    beta = torch.empty((b, c * nsrc), dtype=f32, device=dev)
-    partial = torch.empty((b, lib.blocked_den_fwd_partials(c, ndp)),
+    scratch = torch.empty((lib.blocked_den_fwd_scratch(b, c, nsrc, ndp),),
                           dtype=f32, device=dev)
+    w = _w_rows16(g)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.blocked_den_fwd(
-        _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
-        _ptr(g.w_blocks), _ptr(g.perm), _ptr(g.init_pos),
-        _ptr(g.init_virtual), _ptr(g.final_virtual), float(leaky),
-        b, t, c, nsrc, ndp, g.enter_pad,
-        _ptr(alphas), _ptr(cs), _ptr(logz), _ptr(beta), _ptr(partial),
-        ctypes.c_void_p(stream))
+    with torch.cuda.device(dev):
+        rc = lib.blocked_den_fwd(
+            _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
+            _ptr(w), _ptr(g.perm), _ptr(g.init_pos),
+            _ptr(g.init_virtual), _ptr(g.final_virtual), float(leaky),
+            b, t, c, nsrc, ndp, g.enter_pad, w.shape[2],
+            _ptr(alphas), _ptr(cs), _ptr(logz), _ptr(scratch),
+            ctypes.c_void_p(stream))
     _raise_on(rc, "blocked_den_fwd")
     blocked_den_fwd_cuda.launches += 1
     return logz, alphas, cs
@@ -211,24 +378,25 @@ def blocked_den_bwd_cuda(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
     b, t, v = obs_virtual.shape
     c, nsrc, ndp = g.w_blocks.shape
     dev = obs_virtual.device
-    f32 = torch.float32
     if (alphas.shape != (t, b, v) or cs.shape != (t, b)
             or not alphas.is_contiguous() or not cs.is_contiguous()):
         raise ValueError("alphas/cs do not match obs")
-    gbar = gbar.to(f32).contiguous()
+    gbar = gbar.to(torch.float32).contiguous()
     grad = torch.empty_like(obs_virtual)
-    vcar = torch.empty((b, v), dtype=f32, device=dev)
-    gg = torch.empty((b, v), dtype=f32, device=dev)
-    upart = torch.empty((lib.blocked_den_bwd_splits(ndp), b, c * nsrc),
-                        dtype=f32, device=dev)
+    splits = _bwd_splits(dev.index if dev.index is not None
+                         else torch.cuda.current_device(), b, c, nsrc, ndp)
+    scratch = torch.empty(
+        (lib.blocked_den_bwd_scratch(b, c, nsrc, ndp, splits),),
+        dtype=torch.float32, device=dev)
+    w = _w_rows16(g)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.blocked_den_bwd(
-        _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
-        _ptr(g.w_blocks), _ptr(g.perm_inv), _ptr(g.final_virtual),
-        _ptr(alphas), _ptr(cs), _ptr(gbar),
-        b, t, c, nsrc, ndp, g.enter_pad,
-        _ptr(grad), _ptr(vcar), _ptr(gg), _ptr(upart),
-        ctypes.c_void_p(stream))
+    with torch.cuda.device(dev):
+        rc = lib.blocked_den_bwd(
+            _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
+            _ptr(w), _ptr(g.perm), _ptr(g.perm_inv),
+            _ptr(g.final_virtual), _ptr(alphas), _ptr(cs), _ptr(gbar),
+            b, t, c, nsrc, ndp, g.enter_pad, w.shape[2], splits,
+            _ptr(grad), _ptr(scratch), ctypes.c_void_p(stream))
     _raise_on(rc, "blocked_den_bwd")
     blocked_den_bwd_cuda.launches += 1
     return grad

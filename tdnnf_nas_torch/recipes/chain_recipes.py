@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from tdnnf_nas_torch import convert
+from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.core.metrics import MetricsLogger
 from tdnnf_nas_torch.data.egs import EgsConfig, batch_iterator, make_egs
 from tdnnf_nas_torch.graphs.den_graph import (CompiledDenFsa,
@@ -161,7 +162,7 @@ def train_model(
     dev: bool = False,
     metrics: Optional[MetricsLogger] = None,
     log_every: int = 0,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Tuple[TrainState, MetricsLogger]:
     """The iteration loop (`train.py:473-570` equivalent).
 
@@ -172,6 +173,7 @@ def train_model(
     and the step's samples from a generator on ``device`` seeded
     ``seed + 1``.  ``log_every`` prints step/objf/rate progress.
     """
+    device = resolve_device(device)
     chunks = bundle.egs(model_cfg if not supernet else None,
                         chunk_width=chunk_width, dev=dev,
                         supernet_cfg=model_cfg if supernet else None)
@@ -218,7 +220,7 @@ def run_offset_search_pipeline(
     seed: int = 0,
     trainer_kw: Optional[dict] = None,
     child_top_k: int = 1,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ):
     """Two-stage context-offset DARTS (reference steps 6a-6d).
 
@@ -228,6 +230,7 @@ def run_offset_search_pipeline(
     supernet state, the extracted archs, each child's cfg and state, and
     the metric loggers.
     """
+    device = resolve_device(device)
     tkw = trainer_kw or {}
     darts_cfg = DartsModelConfig(base=base_cfg, search_offsets=True,
                                  max_stride=max_stride)
@@ -278,10 +281,11 @@ def run_bottleneck_search_pipeline(
     chunk_width: int = 20,
     seed: int = 0,
     trainer_kw: Optional[dict] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ):
     """Bottleneck-dim search (reference steps 7a-7d; the stage-8 combo when
     fixed_strides comes from a prior offset search)."""
+    device = resolve_device(device)
     tkw = trainer_kw or {}
     strides = tuple(fixed_strides or base_cfg.stride_pairs)
     darts_cfg = DartsModelConfig(

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from tdnnf_nas_torch.core.config import Config
+from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.models import nas as nas_mod
 from tdnnf_nas_torch.models import tdnnf as tdnnf_mod
 from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph, DenGraphArrays
@@ -75,8 +76,9 @@ def _wd_scale(path) -> float:
 
 
 def init_train_state(model_cfg, trainer_cfg: TrainerConfig,
-                     generator: torch.Generator, device="cpu",
+                     generator: torch.Generator, device=DEFAULT_DEVICE,
                      supernet: bool = False) -> TrainState:
+    device = resolve_device(device)
     if supernet:
         params, alphas, bn_state = nas_mod.init_supernet(model_cfg, generator,
                                                          device)

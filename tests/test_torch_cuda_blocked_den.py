@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from tdnnf_nas_torch.graphs.den_graph import BlockedDenGraph as HostBlocked
+from tdnnf_nas_torch.graphs.den_graph import random_blocked_graph
 from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
 from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
 
@@ -25,40 +25,20 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def random_blocked_graph(rng, c, nsrc, ndpos, r, num_pdfs):
-    """A random graph in the blocked layout: injective perm with pad source
-    slots, row-stochastic W rows, zero columns on unused enter slots."""
-    ndp = r * ndpos + nsrc
-    cs, cnd = c * nsrc, c * ndpos
-    perm = np.full(cs, cnd, np.int64)
-    src = rng.permutation(cs)[: min(cs, cnd) * 9 // 10]
-    dst = rng.permutation(cnd)[: len(src)]
-    perm[src] = dst
-    perm_inv = np.full(cnd, cs, np.int64)
-    perm_inv[dst] = src
-    w = rng.rand(c, nsrc, ndp) * (rng.rand(c, nsrc, ndp) < 0.3)
-    w[:, :, : r * ndpos] *= (rng.rand(r * ndpos) < 0.8)  # unused slots
-    w /= np.maximum(w.sum(-1, keepdims=True), 1e-9)
-    v = c * ndp
-    init_v = rng.rand(v) * (w.sum(1).reshape(-1) > 0)
-    return HostBlocked(
-        w_blocks=w.astype(np.float32), perm=perm.astype(np.int32),
-        perm_inv=perm_inv.astype(np.int32),
-        init_pos=rng.rand(cs).astype(np.float32) / cs,
-        pdf_virtual=rng.randint(0, num_pdfs, v).astype(np.int32),
-        init_virtual=(init_v / init_v.sum()).astype(np.float32),
-        final_virtual=np.ones(v, np.float32),
-        bcast_sel=None, bcast_vec=None, enter_pad=r, num_states=v,
-        num_pdfs=num_pdfs)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("obs_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
-    # (B, T, C, NSRC, NDPOS, R, P): ragged tiles, T=1, flagship
+    # (B, T, C, NSRC, NDPOS, R, P): ragged tiles, T=1, flagship; then the
+    # persistent kernels' tiling edges: three 64-row tiles (B=130), B=1,
+    # T=2, NSRC past one 160-wide tile and NDP past two, neither a
+    # multiple of the 160-wide tiles or the 32-deep stages
     (3, 5, 2, 70, 40, 3, 50),
     (2, 1, 1, 17, 9, 2, 11),
     (64, 50, 7, 538, 538, 4, 6034),
+    (130, 6, 3, 70, 40, 3, 50),
+    (1, 7, 2, 45, 21, 3, 30),
+    (5, 2, 3, 33, 10, 2, 40),
+    (4, 4, 3, 161, 83, 2, 60),
 ])
 def test_kernels_match_plain(cuda, shape, obs_dtype):
     """Tolerances: float32 sums in another order (no atomics, so kernel

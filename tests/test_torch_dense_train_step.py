@@ -97,7 +97,7 @@ def test_objf_trajectory_matches_jax(setup):
     jst = jinit(s["jcfg"], jtc, jax.random.PRNGKey(2))
     tst = _port_state(jst)
     jbatch = jax.tree.map(jnp.asarray, s["jbatch"])
-    tbatch = convert.batch_to_torch(s["tbatch"])
+    tbatch = convert.batch_to_torch(s["tbatch"], device="cpu")
     tstep = make_train_step(s["tcfg"], ttc, s["tbundle"].den_arrays)
     before = ddc.dense_den_fwd_cuda.launches
     jtraj, ttraj = [], []
@@ -126,7 +126,7 @@ def test_dense_den_always_takes_kernel_dispatch(setup, pallas_den):
     from tdnnf_nas_torch.train import ChainObjectiveConfig, chain_objective
 
     den = setup["tbundle"].den_arrays
-    sup = convert.batch_to_torch(setup["tbatch"])["sup"]
+    sup = convert.batch_to_torch(setup["tbatch"], device="cpu")["sup"]
     b, t, _ = sup.mask.shape
     rng = np.random.RandomState(4)
     p = setup["tcfg"].num_pdfs

@@ -1,0 +1,62 @@
+"""The port's device rule: every entry point runs on the card unless its
+caller passes ``device="cpu"``; without a CUDA device, a call that leaves
+``device`` out raises at once instead of running on the CPU."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from tdnnf_nas_torch import convert
+from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
+from tdnnf_nas_torch.models import nas, tdnnf
+from tdnnf_nas_torch.recipes import chain_recipes
+from tdnnf_nas_torch.train import trainer
+from tdnnf_nas_torch.train.optimizer import tree_paths
+
+# (function, positional arguments that are never reached: the device is
+# resolved before any of them is used)
+_ENTRY_POINTS = {
+    "train_model": (chain_recipes.train_model, (None, None, None, 1)),
+    "run_offset_search_pipeline": (
+        chain_recipes.run_offset_search_pipeline, (None, None)),
+    "run_bottleneck_search_pipeline": (
+        chain_recipes.run_bottleneck_search_pipeline, (None, None)),
+    "init_train_state": (trainer.init_train_state, (None, None, None)),
+    "init_model": (tdnnf.init_model, (None, None)),
+    "init_supernet": (nas.init_supernet, (None, None)),
+    "tree_to_torch": (convert.tree_to_torch, ({},)),
+    "batch_to_torch": (convert.batch_to_torch, ({},)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    fn, _ = _ENTRY_POINTS[name]
+    default = inspect.signature(fn).parameters["device"].default
+    assert default == DEFAULT_DEVICE == "cuda"
+    assert torch.device(default).type == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_point_without_cuda_raises(name, monkeypatch):
+    """Holds on any host: CUDA is hidden, so the default cannot be met."""
+    fn, args = _ENTRY_POINTS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(*args)
+
+
+def test_explicit_cpu_runs_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tdnnf.TdnnfModelConfig(
+        feat_dim=8, ivector_dim=0, hidden_dim=16, bottleneck_dim=4,
+        time_strides=(1,), num_pdfs=5, prefinal_big=16, prefinal_small=4)
+    params, _ = tdnnf.init_model(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    leaves = tree_paths(params)
+    assert leaves and all(v.device.type == "cpu" for _, v in leaves)
+    tree = convert.tree_to_torch({"a": np.ones(3, np.float32)}, device="cpu")
+    assert tree["a"].device.type == "cpu"
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -74,7 +74,8 @@ def test_apply_model_matches_jax(train):
         jcfg, p, s, f, i, train=train))(params, bn, jnp.asarray(feats),
                                         jnp.asarray(iv))
     tc, tx, tbn = tmodel.apply_model(
-        tcfg, convert.tree_to_torch(params), convert.tree_to_torch(bn),
+        tcfg, convert.tree_to_torch(params, device="cpu"),
+        convert.tree_to_torch(bn, device="cpu"),
         torch.tensor(feats), torch.tensor(iv), train=train)
     assert tc.shape == (3, 4, 23) and tc.dtype == torch.float32
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4,

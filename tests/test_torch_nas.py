@@ -40,7 +40,7 @@ def darts_cfgs(base=None, **kw):
 
 
 def to_torch(tree):
-    return convert.tree_to_torch(jax.tree.map(np.asarray, tree))
+    return convert.tree_to_torch(jax.tree.map(np.asarray, tree), device="cpu")
 
 
 def seeded_supernet(jcfg, seed):
@@ -295,7 +295,8 @@ _INIT_CASES = {
 def test_init_supernet_keys_and_shapes_match_jax(case):
     jc, tc = darts_cfgs(**_INIT_CASES[case])
     ref = jax.eval_shape(lambda: jnas.init_supernet(jc, jax.random.PRNGKey(0)))
-    out = tnas.init_supernet(tc, torch.Generator().manual_seed(0))
+    out = tnas.init_supernet(tc, torch.Generator().manual_seed(0),
+                             device="cpu")
     for j, t in zip(ref, out):
         assert (jax.tree.map(lambda x: tuple(x.shape), j)
                 == jax.tree.map(lambda x: tuple(x.shape), t))

@@ -66,7 +66,8 @@ def setup():
         np.testing.assert_array_equal(batches[0]["feats"], batches[1]["feats"])
         out["cfg"][which] = (jc, tc)
         out["batch"][which] = (jax.tree.map(jnp.asarray, batches[0]),
-                               convert.batch_to_torch(batches[1]))
+                               convert.batch_to_torch(batches[1],
+                                                      device="cpu"))
     return out
 
 
@@ -88,7 +89,7 @@ def _port_state(jst):
     return convert.supernet_state_from_numpy(
         *(jax.tree.map(np.asarray, t) for t in (
             jst.params, jst.alphas, jst.bn_state, jst.opt_state,
-            jst.alpha_opt_state)), int(jst.step))
+            jst.alpha_opt_state)), int(jst.step), device="cpu")
 
 
 def _run_both(jc, tc, jtc, ttc, jst, tst, den_pair, batch_pair, n):
@@ -221,7 +222,8 @@ def test_train_model_softmax_matches_jax(setup):
     jst, jlog = jtm(setup["jbundle"], jc, jtc, 3, init_state=jst, prefetch=0,
                     **kw)
     tst, tlog = ttm(setup["tbundle"], tc, ttc, 3,
-                    init_state=_port_state(_jax_state(jc, jtc)), **kw)
+                    init_state=_port_state(_jax_state(jc, jtc)),
+                    device="cpu", **kw)
     jo = [v for _, v in jlog.series["objf_mmi"]]
     to = [v for _, v in tlog.series["objf_mmi"]]
     assert len(to) == len(jo) == 3
@@ -296,7 +298,8 @@ def test_search_copy_equals_original():
     assert tsearch.arch_param_count(tchild) == jsearch.arch_param_count(
         jchild)
     assert tsearch.arch_param_count(tchild) == tmodels.count_params(
-        tmodels.init_model(tchild, torch.Generator().manual_seed(0))[0])
+        tmodels.init_model(tchild, torch.Generator().manual_seed(0),
+                           device="cpu")[0])
 
 
 def test_metrics_logger_matches_jax(tmp_path):
@@ -358,7 +361,7 @@ def test_offset_search_pipeline(mini_bundle):
     res = run_offset_search_pipeline(
         mini_bundle, tmodels.TdnnfModelConfig(**_MINI_BASE), max_stride=2,
         pretrain_steps=14, cvupdate_steps=12, child_steps=14, batch_size=4,
-        chunk_width=14, trainer_kw=_MINI_TKW)
+        chunk_width=14, trainer_kw=_MINI_TKW, device="cpu")
     a = res["supernet_state"].alphas["offsets_linear"]
     assert float(a.abs().max()) > 1e-4
     pairs, _ = res["archs"][0]
@@ -378,7 +381,7 @@ def test_bottleneck_search_pipeline(mini_bundle):
         mini_bundle, tmodels.TdnnfModelConfig(**_MINI_BASE),
         bottleneck_groups=(4, 4, 8), pretrain_steps=12, cvupdate_steps=10,
         child_steps=12, flops_coef=1e-4, batch_size=4, chunk_width=14,
-        trainer_kw=_MINI_TKW)
+        trainer_kw=_MINI_TKW, device="cpu")
     dims, _ = res["archs"][0]
     assert len(dims) == 2 and all(d in (4, 8, 16) for d in dims)
     assert res["child_cfg"].bottleneck_dims == dims

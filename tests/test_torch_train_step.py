@@ -67,7 +67,8 @@ def _port_state(jstate):
     return convert.train_state_from_numpy(
         jax.tree.map(np.asarray, jstate.params),
         jax.tree.map(np.asarray, jstate.bn_state),
-        jax.tree.map(np.asarray, jstate.opt_state), int(jstate.step))
+        jax.tree.map(np.asarray, jstate.opt_state), int(jstate.step),
+        device="cpu")
 
 
 def _port_step(s):
@@ -120,7 +121,7 @@ def test_one_step_matches_jax(setup):
     jl, jg = jax.jit(jax.value_and_grad(jloss))(jstate.params)
 
     tstate = _port_state(jstate)
-    tbatch = convert.batch_to_torch(s["tbatch"])
+    tbatch = convert.batch_to_torch(s["tbatch"], device="cpu")
     tden = BlockedDenGraph.from_host(s["tbundle"].den_arrays, "cpu")
     pl = tree_paths(tstate.params)
     leaves = [x.clone().requires_grad_(True) for _, x in pl]
@@ -177,7 +178,7 @@ def test_objf_trajectory_matches_jax(setup):
     jstep = s["jstep"]
     jbatch_dev = jax.tree.map(jnp.asarray, s["jbatch"])
     tstep = _port_step(s)
-    tbatch = convert.batch_to_torch(s["tbatch"])
+    tbatch = convert.batch_to_torch(s["tbatch"], device="cpu")
     jst, tst = s["jstate"], _port_state(s["jstate"])
     jtraj, ttraj = [], []
     for _ in range(12):
