@@ -28,8 +28,9 @@ plain PyTorch versions.  Phases, each raising on failure:
   5. the dense biphone flagship on phase 1's corpus: host setup (2,208
      den states and pdfs, 16,784,684 params); dense-den kernels vs plain
      at B=64, T=50, S=2,208 in float32, with timings, ``library_ms``, the
-     bound and the device launches of one scan; launch counters
-     reset, then 6 bf16 steps with the default objective config (objf
+     bound and the device launches of one scan (one each, checked), the
+     kernel and cuBLAS times at the search's B=32 beside them; launch
+     counters reset, then 6 bf16 steps with the default objective config (objf
      and grad_norm finite, both kernels launched once per step, ms/step);
      one float32 kernel step against the same step through the plain den;
   6. the two-stage DARTS search on phase 5's biphone bundle and den: the
@@ -46,7 +47,8 @@ plain PyTorch versions.  Phases, each raising on failure:
      first.
 
 Prints the card's name and power limit, one JSON line of per-kernel
-results (with ``bound_ms``, ``bound_by``, ``library_ms`` and
+results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
+three TF32 tensor-core passes ``bound_ms_3xtf32`` and
 ``launches_per_scan``), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
@@ -98,8 +100,9 @@ def _check(ok: bool, what: str) -> None:
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for bound_ms:
-# float32 outside the tensor cores, and device memory.
+# float32 outside the tensor cores, dense TF32 on them, device memory.
 _PEAK_F32_FLOPS = 67e12
+_PEAK_TF32_FLOPS = 495e12
 _PEAK_BYTES = 3.35e12
 
 
@@ -109,6 +112,13 @@ def _bound(flops: float, nbytes: float):
     t_ops, t_mem = flops / _PEAK_F32_FLOPS, nbytes / _PEAK_BYTES
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                      else "bytes")
+
+
+def _bound_3xtf32(flops: float, nbytes: float) -> float:
+    """The bound on the unit the kernels' products run on: three TF32
+    tensor-core passes (3xTF32) of the float32 product at the dense TF32
+    peak, or the bytes over the memory rate, whichever is larger (ms)."""
+    return max(3.0 * flops / _PEAK_TF32_FLOPS, nbytes / _PEAK_BYTES) * 1e3
 
 
 def _device_launches(torch, fn):
@@ -191,14 +201,13 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
     leaky = 0.1
     z_k, al_k, cs_k = ddc.dense_den_fwd_cuda(obs, g.trans, g.init, g.final,
                                              leaky)
-    gr_k = ddc.dense_den_bwd_cuda(obs, g.trans_T, g.final, al_k, cs_k, gbar)
+    gr_k = ddc.dense_den_bwd_cuda(obs, g.trans, g.final, al_k, cs_k, gbar)
     z_k2, al_k2, cs_k2 = ddc.dense_den_fwd_cuda(obs, g.trans, g.init,
                                                 g.final, leaky)
-    gr_k2 = ddc.dense_den_bwd_cuda(obs, g.trans_T, g.final, al_k2, cs_k2,
-                                   gbar)
+    gr_k2 = ddc.dense_den_bwd_cuda(obs, g.trans, g.final, al_k2, cs_k2, gbar)
     z_p, al_p, cs_p = ddc.dense_scan_fwd_plain(obs, g.trans, g.init, g.final,
                                                leaky)
-    gr_p = ddc.dense_scan_bwd_plain(obs, g.trans_T, g.final, al_p, cs_p, gbar)
+    gr_p = ddc.dense_scan_bwd_plain(obs, g.trans, g.final, al_p, cs_p, gbar)
     torch.cuda.synchronize()
     _check(bool(torch.isfinite(z_k).all() and torch.isfinite(gr_k).all()),
            "finite dense kernel outputs")
@@ -221,9 +230,9 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
         "fwd_plain": _cuda_ms(torch, lambda: ddc.dense_scan_fwd_plain(
             obs, g.trans, g.init, g.final, leaky)),
         "bwd": _cuda_ms(torch, lambda: ddc.dense_den_bwd_cuda(
-            obs, g.trans_T, g.final, al_k, cs_k, gbar)),
+            obs, g.trans, g.final, al_k, cs_k, gbar)),
         "bwd_plain": _cuda_ms(torch, lambda: ddc.dense_scan_bwd_plain(
-            obs, g.trans_T, g.final, al_p, cs_p, gbar)),
+            obs, g.trans, g.final, al_p, cs_p, gbar)),
     }
     print(f"[dense den timing, f32, B={batch_size} T={chunk_width} "
           f"S={g.trans.shape[0]}] fwd kernel {times['fwd']:.3f} ms vs plain "
@@ -241,20 +250,40 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
                               chunk_width)}
     flops = 2.0 * batch_size * s * s * (chunk_width - 1)
     plane = 4.0 * batch_size * chunk_width * s
-    bound = {"fwd": _bound(flops, 2 * plane + 4.0 * s * s),
-             "bwd": _bound(flops, 3 * plane + 4.0 * s * s)}
+    moved = {"fwd": 2 * plane + 4.0 * s * s, "bwd": 3 * plane + 4.0 * s * s}
+    bound = {k: _bound(flops, v) for k, v in moved.items()}
+    bound_tc = {k: _bound_3xtf32(flops, v) for k, v in moved.items()}
     per_scan = {
         "fwd": _device_launches(torch, lambda: ddc.dense_den_fwd_cuda(
             obs, g.trans, g.init, g.final, leaky)),
         "bwd": _device_launches(torch, lambda: ddc.dense_den_bwd_cuda(
-            obs, g.trans_T, g.final, al_k, cs_k, gbar)),
+            obs, g.trans, g.final, al_k, cs_k, gbar)),
     }
+    # the search's batch (phase 6): B = 32, same T and S
+    b32 = batch_size // 2
+    obs32, gbar32 = obs[:b32].contiguous(), gbar[:b32].contiguous()
+    _, al32, cs32 = ddc.dense_den_fwd_cuda(obs32, g.trans, g.init, g.final,
+                                           leaky)
+    x32, y32 = x[:b32].contiguous(), y[:b32].contiguous()
+    times32 = {
+        "fwd": _cuda_ms(torch, lambda: ddc.dense_den_fwd_cuda(
+            obs32, g.trans, g.init, g.final, leaky)),
+        "bwd": _cuda_ms(torch, lambda: ddc.dense_den_bwd_cuda(
+            obs32, g.trans, g.final, al32, cs32, gbar32))}
+    lib32 = {"fwd": _library_ms(torch, lambda: torch.mm(
+                 x32, g.trans, out=y32), chunk_width),
+             "bwd": _library_ms(torch, lambda: torch.mm(
+                 x32, g.trans.T, out=y32), chunk_width)}
     for k in ("fwd", "bwd"):
-        print(f"[dense den {k}] kernel {times[k]:.3f} ms; cuBLAS products "
-              f"alone {lib[k]:.3f} ms; bound {bound[k][0]:.3f} ms "
-              f"({bound[k][1]}); device launches per scan {per_scan[k]} "
-              f"({gpu})", flush=True)
+        print(f"[dense den {k}] B={batch_size}: kernel {times[k]:.3f} ms, "
+              f"cuBLAS products alone {lib[k]:.3f} ms; B={b32}: kernel "
+              f"{times32[k]:.3f} ms, cuBLAS {lib32[k]:.3f} ms; bound "
+              f"(B={batch_size}) {bound[k][0]:.3f} ms ({bound[k][1]}), "
+              f"3xTF32 bound {bound_tc[k]:.3f} ms; device launches per scan "
+              f"{per_scan[k]} ({gpu})", flush=True)
+        _check(per_scan[k] == 1, f"dense {k}: one device kernel per scan")
     del al_k, al_k2, al_p, gr_k, gr_k2, gr_p, logits, x, y
+    del al32, obs32, x32, y32
 
     # ---- 5.3 training: the dense main path (a dense den always takes
     # the kernels; the default config shows no switch is needed) ----
@@ -332,13 +361,17 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
          "max_abs_err": err_z, "ms": times["fwd"],
          "plain_ms": times["fwd_plain"], "bound_ms": bound["fwd"][0],
          "bound_by": bound["fwd"][1], "library_ms": lib["fwd"],
-         "launches_per_scan": per_scan["fwd"]},
+         "bound_ms_3xtf32": bound_tc["fwd"],
+         "launches_per_scan": per_scan["fwd"], "ms_b32": times32["fwd"],
+         "library_ms_b32": lib32["fwd"]},
         {"name": "dense_den_bwd", "route": "cuda", "source": src,
          "replaces": f"{_TPU_KERNELS}:110", "launches": launches["bwd"],
          "max_abs_err": err_g, "ms": times["bwd"],
          "plain_ms": times["bwd_plain"], "bound_ms": bound["bwd"][0],
          "bound_by": bound["bwd"][1], "library_ms": lib["bwd"],
-         "launches_per_scan": per_scan["bwd"]},
+         "bound_ms_3xtf32": bound_tc["bwd"],
+         "launches_per_scan": per_scan["bwd"], "ms_b32": times32["bwd"],
+         "library_ms_b32": lib32["bwd"]},
     ]
     return rows, bundle, g
 
@@ -719,8 +752,10 @@ def main() -> int:
             flops = 2.0 * batch_size * c * nsrc * ndp * (chunk_width - 1)
             n_obs = batch_size * chunk_width * c * ndp
             w_bytes = 4.0 * c * nsrc * ndp
-            bound = {"fwd": _bound(flops, 6.0 * n_obs + w_bytes),
-                     "bwd": _bound(flops, 8.0 * n_obs + w_bytes)}
+            moved = {"fwd": 6.0 * n_obs + w_bytes,
+                     "bwd": 8.0 * n_obs + w_bytes}
+            bound = {k: _bound(flops, v) for k, v in moved.items()}
+            bound_tc = {k: _bound_3xtf32(flops, v) for k, v in moved.items()}
             per_scan = {
                 "fwd": _device_launches(
                     torch, lambda: bdc.blocked_den_fwd_cuda(obs_v, g, leaky)),
@@ -736,8 +771,9 @@ def main() -> int:
           f"plain {times['bwd_plain']:.3f} ms ({gpu})", flush=True)
     for k in ("fwd", "bwd"):
         print(f"[den {k}] kernel {times[k]:.3f} ms; cuBLAS products alone "
-              f"{lib[k]:.3f} ms; bound {bound[k][0]:.3f} ms ({bound[k][1]}); "
-              f"device launches per scan {per_scan[k]} ({gpu})", flush=True)
+              f"{lib[k]:.3f} ms; bound {bound[k][0]:.3f} ms ({bound[k][1]}), "
+              f"3xTF32 bound {bound_tc[k]:.3f} ms; device launches per scan "
+              f"{per_scan[k]} ({gpu})", flush=True)
 
     # ---- 3. training: the main path ----
     trainer_cfg = TrainerConfig(
@@ -847,6 +883,7 @@ def main() -> int:
          "max_abs_err": errs["fwd"], "ms": times["fwd"],
          "plain_ms": times["fwd_plain"], "bound_ms": bound["fwd"][0],
          "bound_by": bound["fwd"][1], "library_ms": lib["fwd"],
+         "bound_ms_3xtf32": bound_tc["fwd"],
          "launches_per_scan": per_scan["fwd"]},
         {"name": "blocked_den_bwd", "route": "cuda",
          "source": "tdnnf_nas_torch/csrc/blocked_den.cu",
@@ -854,6 +891,7 @@ def main() -> int:
          "max_abs_err": errs["bwd"], "ms": times["bwd"],
          "plain_ms": times["bwd_plain"], "bound_ms": bound["bwd"][0],
          "bound_by": bound["bwd"][1], "library_ms": lib["bwd"],
+         "bound_ms_3xtf32": bound_tc["bwd"],
          "launches_per_scan": per_scan["bwd"]},
     ] + dense
     print(gpu)

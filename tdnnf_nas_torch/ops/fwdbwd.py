@@ -47,20 +47,18 @@ def _normalized_log_obs(obs_logprob: torch.Tensor):
 @dataclasses.dataclass
 class DenGraphArrays:
     """Device copy of a dense denominator graph (shared across the batch).
-
-    ``trans_T`` is the contiguous transpose: the adjoint's product
-    ``v @ trans^T`` streams its rows as the forward streams ``trans``'s.
+    The adjoint reads ``trans`` transposed, so no transposed copy is kept.
     """
 
     trans: torch.Tensor  # [S, S] f32
-    trans_T: torch.Tensor  # [S, S] f32
     state_pdf: torch.Tensor  # [S] int64 (index_select)
     init: torch.Tensor  # [S] f32
     final: torch.Tensor  # [S] f32
 
     @classmethod
-    def from_graph(cls, g, device="cpu") -> "DenGraphArrays":
-        """Copy a host ``graphs.fsa.StateGraph`` to ``device``."""
+    def from_graph(cls, g, device) -> "DenGraphArrays":
+        """Copy a host ``graphs.fsa.StateGraph`` to ``device`` (required,
+        as for ``BlockedDenGraph.from_host``)."""
 
         def dev(a, dtype):
             return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -68,7 +66,6 @@ class DenGraphArrays:
 
         return cls(
             trans=dev(g.trans, torch.float32),
-            trans_T=dev(g.trans.T, torch.float32),
             state_pdf=dev(g.state_pdf, torch.int64),
             init=dev(g.init, torch.float32),
             final=dev(g.final, torch.float32),

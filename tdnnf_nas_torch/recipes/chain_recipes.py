@@ -55,8 +55,9 @@ from tdnnf_nas_torch.train.trainer import (TrainerConfig, TrainState,
 class DataBundle:
     lm: object  # PhoneLM (dense den) | NGramPhoneLM (composed den)
     den: object  # dense StateGraph; None on the composed branch
-    # dense: DenGraphArrays on the CPU (DenGraphArrays.from_graph(den, dev)
-    # puts it on a device); composed: the host graphs.den_graph
+    # dense: DenGraphArrays kept on the CPU on purpose
+    # (DenGraphArrays.from_graph(den, dev) puts it on a device, see
+    # den_on_device); composed: the host graphs.den_graph
     # BlockedDenGraph (ops.fwdbwd.BlockedDenGraph.from_host)
     den_arrays: object
     tree: object
@@ -124,7 +125,7 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
         lm = estimate_phone_lm(phone_seqs, num_phones)
         den = build_denominator_graph(lm, topo, tree)
         return DataBundle(
-            lm=lm, den=den, den_arrays=DenGraphArrays.from_graph(den),
+            lm=lm, den=den, den_arrays=DenGraphArrays.from_graph(den, "cpu"),
             tree=tree, topo=topo, train_utts=train, dev_utts=dev,
             num_phones=num_phones,
             train_ivectors=iv_train, dev_ivectors=iv_dev,

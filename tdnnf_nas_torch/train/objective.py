@@ -66,7 +66,7 @@ def chain_objective(
     else:
         logz_den = pallas_forward_score(
             chain_out, den.trans, den.state_pdf, den.init, den.final,
-            leaky_coef=cfg.leaky_hmm_coef, trans_T=den.trans_T)
+            leaky_coef=cfg.leaky_hmm_coef)
 
     # Numerator: logZ_num and its gradient gamma (= occupancy posteriors)
     # on a detached copy; a first-order surrogate re-attaches the exact

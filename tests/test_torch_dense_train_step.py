@@ -74,7 +74,9 @@ def test_host_batches_identical(setup):
         np.testing.assert_array_equal(getattr(td.den, f),
                                       getattr(jd.den, f), err_msg=f)
     assert isinstance(td.den_arrays, DenGraphArrays)
-    np.testing.assert_array_equal(td.den_arrays.trans_T.numpy(),
+    np.testing.assert_array_equal(td.den_arrays.trans.numpy(),
+                                  np.asarray(jd.den_arrays.trans))
+    np.testing.assert_array_equal(td.den_arrays.trans.T.numpy(),
                                   np.asarray(jd.den_arrays.trans_T))
 
 

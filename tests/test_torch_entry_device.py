@@ -48,6 +48,25 @@ def test_entry_point_without_cuda_raises(name, monkeypatch):
         fn(*args)
 
 
+def test_dense_den_converter_needs_a_device():
+    """DenGraphArrays.from_graph has no default device, as
+    BlockedDenGraph.from_host has none: leaving it out raises TypeError;
+    an explicit "cpu" copies every array there."""
+    from tdnnf_nas_torch.graphs.fsa import StateGraph
+    from tdnnf_nas_torch.ops.fwdbwd import DenGraphArrays
+
+    trans = np.full((3, 3), 1.0 / 3, np.float32)
+    g = StateGraph(trans=trans, state_pdf=np.arange(3, dtype=np.int32),
+                   init=np.full(3, 1.0 / 3, np.float32),
+                   final=np.ones(3, np.float32), num_pdfs=3)
+    with pytest.raises(TypeError):
+        DenGraphArrays.from_graph(g)
+    arrays = DenGraphArrays.from_graph(g, "cpu")
+    assert arrays.trans.device.type == "cpu"
+    assert all(getattr(arrays, f).device.type == "cpu" for f in (
+        "state_pdf", "init", "final"))
+
+
 def test_explicit_cpu_runs_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tdnnf.TdnnfModelConfig(
