@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tdnnf_nas_torch``) on one NVIDIA GPU.
 
-Drives the port's two training paths and its architecture search: a few
-LF-MMI steps each of the
+Drives the port's two training paths, the flagship step fed from a TEGS
+shard through the native loader and the prefetcher, and its
+architecture search: a few LF-MMI steps each of the
 flagship TDNN-F 7q model (random seeded weights) on 64 x 150-frame
 chunks: against the production 4-gram x left-2 triphone blocked
 denominator (10,271 states, 6,034 pdfs, 18,751,248 params), and against
@@ -36,15 +37,31 @@ plain PyTorch versions.  Phases, each raising on failure:
   6. the two-stage DARTS search on phase 5's biphone bundle and den: the
      offsets supernet (K = 7 branches x 14 layers, 51,494,904 params,
      context (85, 85), B = 32) with launch counters reset: 2 warm-up and
-     4 timed uniform steps, theta only (ms/step, peak memory); 3 gumbel
-     alpha-only steps on the dev split with theta and BN frozen (checked
-     bit for bit); top-3 extraction and 2 bf16 steps of the child; the
+     4 timed uniform steps, theta only (ms/step, peak memory); stage A's
+     state handed to stage B through a checkpoint (``save_checkpoint`` /
+     ``load_checkpoint`` in a temporary directory, the loaded state
+     checked leaf for leaf); 3 gumbel alpha-only steps on the dev split
+     with theta and BN frozen (checked bit for bit); top-3 extraction and 2 bf16 steps of the child; the
      bottleneck supernet (23,232,504 params, context (34, 34)): 2 uniform
      and 2 gumbel alpha-only steps with the FLOPs penalty; one float32
      softmax supernet step through the kernels against the same step
      through the plain den.  Every supernet step launches each dense
      kernel once; each run after stage A times its steps after the
-     first.
+     first;
+  7. (run last, on phase 1's chunks, blocked den and first batch, kept
+     for it) the reference bench's headline path (``bench.py:180-237``): phase 1's chunks written to a
+     TEGS shard, streamed by the native loader (``egs_loader.cc`` built
+     by g++; batch 64, queue depth 6, seed 0) with synthetic i-vectors
+     through the CUDA-stream prefetcher (size 3, bf16 payload) into the
+     bf16 step; launch counters reset, 2 warm-up steps, then 3
+     alternating rounds of 30 loader-fed and 30 resident steps (ms/step
+     and audio-s/s ranges; objf and grad_norm finite; each blocked
+     kernel launched once per step) and the card's idle share over 2
+     profiled steps of each; under deterministic algorithms, bit for
+     bit: a bf16-payload step against its float32-payload step,
+     prefetched batches against synchronous copies, and a step after a
+     checkpoint round trip against the step of the unbroken state (with
+     the .npz size).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
@@ -58,6 +75,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -121,22 +139,27 @@ def _bound_3xtf32(flops: float, nbytes: float) -> float:
     return max(3.0 * flops / _PEAK_TF32_FLOPS, nbytes / _PEAK_BYTES) * 1e3
 
 
-def _device_launches(torch, fn):
+def _device_launches(torch, fn, attempts: int = 3):
     """Device kernels one fn() call launches (memsets and copies apart),
     read from torch.profiler after a warm-up call; None if the profiler
-    sees no device activity."""
+    sees no device activity in any of ``attempts`` profiles (on the
+    card it now and then records none for a whole profile, so a profile
+    without device events is taken again)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in dev if not e.name.startswith(("Memset", "Memcpy"))]
-    return len(kernels) if dev else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            return sum(not e.name.startswith(("Memset", "Memcpy"))
+                       for e in dev)
+    return None
 
 
 def _library_ms(torch, mm, t: int) -> float:
@@ -380,6 +403,294 @@ def _dense_launches(ddc):
     return (ddc.dense_den_fwd_cuda.launches, ddc.dense_den_bwd_cuda.launches)
 
 
+def _blocked_launches(bdc):
+    return (bdc.blocked_den_fwd_cuda.launches,
+            bdc.blocked_den_bwd_cuda.launches)
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """torch.use_deterministic_algorithms inside the block: the step's
+    scatter-adds (the backward of its gathers and index_selects) take
+    their deterministic implementations, so that equal inputs give equal
+    bits.  ``warn_only``: cuBLAS only warns without
+    ``CUBLAS_WORKSPACE_CONFIG``, which the script leaves unset, since
+    with it set the host took longer to launch each GEMM (the cuBLAS
+    yardsticks, 49 launches timed together, read 2-3x slower); one
+    stream's GEMMs repeat bit for bit, and the phase checks that a step
+    repeats."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _states_equal(torch, a, b) -> bool:
+    """Leaf for leaf, bit for bit, the step counter included."""
+    from tdnnf_nas_torch.train.optimizer import tree_paths
+
+    for name in ("params", "alphas", "bn_state", "opt_state",
+                 "alpha_opt_state"):
+        pa, pb = tree_paths(getattr(a, name)), tree_paths(getattr(b, name))
+        if [p for p, _ in pa] != [p for p, _ in pb]:
+            return False
+        if not all(x.dtype == y.dtype and torch.equal(x, y)
+                   for (_, x), (_, y) in zip(pa, pb)):
+            return False
+    return a.step == b.step
+
+
+def _metrics_equal(torch, a, b) -> bool:
+    return set(a) == set(b) and all(
+        torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for k in a)
+
+
+def _idle_share(torch, fn):
+    """(idle share, kernel ms, window ms) of the card over fn(): the
+    share of the window from the first device kernel's start to the last
+    one's end in which no kernel ran (copies and memsets apart), from
+    torch.profiler; None if the profiler sees no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.name.startswith(("Memset", "Memcpy")))
+    if not spans:
+        return None
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = max(e for _, e in spans) - spans[0][0]
+    return 1.0 - busy / window, busy / 1e3, window / 1e3
+
+
+def _loader_phase(torch, dev, gpu, chunks, g, model_cfg, trainer_cfg,
+                  resident):
+    """Phase 7, the reference bench's headline path (bench.py:180-237)
+    through the port: phase 1's flagship chunks written to a TEGS shard,
+    read back by the native loader (batch 64, queue depth 6, seed 0) with
+    bench.py's synthetic i-vectors, staged by the CUDA-stream prefetcher
+    (size 3, bf16 payload) into the bf16 ``den_obs_bf16`` step.  Launch
+    counters reset; 2 warm-up steps, then 3 alternating rounds of 30
+    loader-fed and 30 resident steps (``resident``: one batch on the
+    card), each closed by a host fetch of objf_mmi; the card's idle share
+    over 2 profiled steps of each; then, under deterministic algorithms, a bf16-
+    against a float32-payload step, prefetched against synchronous
+    copies, and a checkpoint round trip against the unbroken state, each
+    bit for bit.  Returns the blocked kernels' launches over the phase."""
+    import tempfile
+
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.core.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from tdnnf_nas_torch.core.config import asdict_config
+    from tdnnf_nas_torch.data import native
+    from tdnnf_nas_torch.data.egs_file import NativeEgsLoader, write_egs_file
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.parallel import (compress_batch_bf16,
+                                          prefetch_to_device)
+    from tdnnf_nas_torch.train import init_train_state, make_train_step
+
+    # n_prof: steps profiled for the card's idle share, few: after the
+    # earlier phases' profiles, a second profile of 5 steps in the same
+    # process recorded only about half of its device kernels
+    batch_size, n_warm, n_timed, rounds, n_prof = 64, 2, 30, 3, 2
+    audio_s = batch_size * 50 * 3 * 0.010
+    iv_rng = np.random.RandomState(3)
+
+    def with_iv(b):
+        b["ivectors"] = iv_rng.randn(b["feats"].shape[0],
+                                     model_cfg.ivector_dim).astype(np.float32)
+        return b
+
+    td = tempfile.TemporaryDirectory()
+    loader = None
+    try:
+        # ---- 7.0 shard and loader ----
+        t0 = time.perf_counter()
+        shard = os.path.join(td.name, "egs.tegs")
+        write_egs_file(chunks, shard)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.get_lib()
+        t_lib = time.perf_counter() - t0
+        loader = NativeEgsLoader(shard, batch_size, queue_depth=6, seed=0)
+        host = iter(loader)
+        print(f"[loader] TEGS shard of {loader.num_chunks} chunks, "
+              f"{os.path.getsize(shard):,} bytes, written in {t_write:.1f} s; "
+              f"egs_loader.cc built and loaded in {t_lib:.1f} s "
+              f"({native.library_path().name})", flush=True)
+
+        def stream(n):
+            for _ in range(n):
+                yield with_iv(next(host))
+
+        step = make_train_step(model_cfg, trainer_cfg, g)
+
+        def loader_fed(state, n):
+            m = None
+            for b in prefetch_to_device(stream(n), size=3, device=dev,
+                                        payload_bf16=True):
+                _check(all(a.is_cuda for a in _batch_leaves(b)),
+                       "the prefetcher hands the step card tensors")
+                state, m = step(state, b)
+            return state, m
+
+        def resident_fed(state, n):
+            m = None
+            for _ in range(n):
+                state, m = step(state, resident)
+            return state, m
+
+        # ---- 7.1 timed rounds, launch counters reset ----
+        state = init_train_state(model_cfg, trainer_cfg,
+                                 torch.Generator().manual_seed(0), dev)
+        bdc.blocked_den_fwd_cuda.launches = 0
+        bdc.blocked_den_bwd_cuda.launches = 0
+        state, m = loader_fed(state, n_warm)
+        _check(np.isfinite(float(m["objf_mmi"])), "warm-up objf finite")
+        state, m = resident_fed(state, n_warm)
+        _check(np.isfinite(float(m["objf_mmi"])), "warm-up objf finite")
+        ms = {"loader": [], "resident": []}
+        runs = {"loader": loader_fed, "resident": resident_fed}
+        for r in range(rounds):
+            for name in ("loader", "resident"):
+                before = _blocked_launches(bdc)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = runs[name](state, n_timed)
+                objf = float(m["objf_mmi"])  # the host fetch closes the time
+                dt = (time.perf_counter() - t0) / n_timed
+                ms[name].append(dt * 1e3)
+                after = _blocked_launches(bdc)
+                print(f"[loader round {r + 1}] {name}-fed: {dt * 1e3:.2f} "
+                      f"ms/step, {audio_s / dt:.1f} audio-s/s over "
+                      f"{n_timed} steps; objf_mmi {objf:.4f} grad_norm "
+                      f"{float(m['grad_norm']):.4f}", flush=True)
+                _check(np.isfinite(objf)
+                       and np.isfinite(float(m["grad_norm"])),
+                       f"{name}-fed objf_mmi and grad_norm finite")
+                _check(after[0] - before[0] == n_timed
+                       and after[1] - before[1] == n_timed,
+                       f"{name}-fed: each blocked kernel launched once per "
+                       "step")
+        for name in ("loader", "resident"):
+            v = ms[name]
+            print(f"[loader] {name}-fed bf16 step: {min(v):.2f}-{max(v):.2f}"
+                  f" ms/step ({audio_s / (max(v) / 1e3):.1f}-"
+                  f"{audio_s / (min(v) / 1e3):.1f} audio-s/s) over {rounds} "
+                  f"rounds of {n_timed} ({gpu})", flush=True)
+        holder = [state]
+
+        def profiled(run):
+            def go():
+                holder[0], m = runs[run](holder[0], n_prof)
+                float(m["objf_mmi"])
+            return go
+
+        for name in ("loader", "resident"):
+            idle = _idle_share(torch, profiled(name))
+            print(f"[loader profile] {name}-fed, {n_prof} steps: " + (
+                "profiler saw no device kernel" if idle is None else
+                f"card idle {idle[0]:.1%} of {idle[2]:.1f} ms "
+                f"({idle[1] / n_prof:.1f} ms of kernels a step)")
+                  + f" ({gpu})", flush=True)
+        state = holder[0]
+        launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
+                    "bwd": bdc.blocked_den_bwd_cuda.launches}
+        n_steps = 2 * (n_warm + rounds * n_timed + n_prof)
+        _check(launches["fwd"] == launches["bwd"] == n_steps,
+               "each blocked kernel launched once per step of the phase")
+
+        # ---- 7.2 bit for bit: bf16 against float32 payload, prefetched
+        # against synchronous copies ----
+        hb = [with_iv(next(host)) for _ in range(4)]
+        b16 = list(prefetch_to_device(iter(hb), size=3, device=dev,
+                                      payload_bf16=True))
+        b32 = list(prefetch_to_device(iter(hb), size=3, device=dev))
+        with _deterministic(torch):
+            s16, m16 = step(state, b16[0])
+            s32, m32 = step(state, b32[0])
+            s16b, m16b = step(state, b16[0])
+        torch.cuda.synchronize()
+        _check(_states_equal(torch, s16, s16b)
+               and _metrics_equal(torch, m16, m16b),
+               "a deterministic step repeats bit for bit")
+        _check(_states_equal(torch, s16, s32)
+               and _metrics_equal(torch, m16, m32),
+               "bf16-payload step equals the float32-payload step bit for "
+               "bit")
+        del s16, s32, s16b
+        same = 0
+        for got16, got32, h in zip(b16, b32, hb):
+            for got, want in ((got16, convert.batch_to_torch(
+                    compress_batch_bf16(h), dev)),
+                              (got32, convert.batch_to_torch(h, dev))):
+                ga, wa = _batch_leaves(got), _batch_leaves(want)
+                _check(len(ga) == len(wa) and all(
+                    a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(ga, wa)),
+                    "prefetched batch equals its synchronous copy")
+                same += 1
+        print(f"[loader bits] bf16-payload step == float32-payload step: "
+              f"objf_mmi {float(m16['objf_mmi']):.9g}, all "
+              f"{sum(x.numel() for x in _batch_leaves(b16[0]))} batch "
+              f"elements; {same} prefetched batches == synchronous copies; "
+              f"a deterministic step repeats", flush=True)
+
+        # ---- 7.3 checkpoint round trip: resumed against unbroken ----
+        st = init_train_state(model_cfg, trainer_cfg,
+                              torch.Generator().manual_seed(0), dev)
+        st, _ = resident_fed(st, 2)
+        ck = os.path.join(td.name, "ckpt")
+        t0 = time.perf_counter()
+        path = save_checkpoint(ck, 2, st, meta={
+            "model": asdict_config(model_cfg),
+            "trainer": asdict_config(trainer_cfg)})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded, ck_step, _ = load_checkpoint(ck, init_train_state(
+            model_cfg, trainer_cfg, torch.Generator().manual_seed(5), dev))
+        t_load = time.perf_counter() - t0
+        _check(ck_step == 2 and _states_equal(torch, loaded, st),
+               "the loaded state equals the saved state")
+        with _deterministic(torch):
+            a, ma = step(loaded, b16[1])
+            b, mb = step(st, b16[1])
+        torch.cuda.synchronize()
+        _check(_states_equal(torch, a, b) and _metrics_equal(torch, ma, mb),
+               "resumed step equals the unbroken step bit for bit")
+        print(f"[loader ckpt] {os.path.getsize(path + '.npz'):,}-byte .npz "
+              f"saved in {t_save:.1f} s, loaded in {t_load:.1f} s; the step "
+              f"after it equals the unbroken step leaf for leaf, bit for bit",
+              flush=True)
+        return launches
+    finally:
+        if loader is not None:
+            loader.close()
+        td.cleanup()
+
+
+def _batch_leaves(batch):
+    """The tensors of a batch, in ``convert.map_batch`` order."""
+    from tdnnf_nas_torch import convert
+
+    out = []
+    convert.map_batch(lambda _, a: out.append(a), batch)
+    return out
+
+
 def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
                   expect_params):
     """Phase 6, the two-stage DARTS search on the dense biphone den (setup
@@ -388,8 +699,12 @@ def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
     parameter counts.  Returns the dense kernels' launches over the
     search's steps, {"fwd": n, "bwd": n}."""
     import dataclasses
+    import tempfile
 
     from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.core.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from tdnnf_nas_torch.core.config import asdict_config
     from tdnnf_nas_torch.data import batch_iterator
     from tdnnf_nas_torch.models import (BOTTLENECK_DIMS, DartsModelConfig,
                                         SearchMode, count_params,
@@ -479,8 +794,7 @@ def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
     _check(shapes == {"offsets_linear": (darts.num_layers, k),
                       "offsets_affine": (darts.num_layers, k)},
            "offset alphas [L, K] twice")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    step = make_train_step(darts, pre_cfg, g, generator=gen, supernet=True)
+    step = make_train_step(darts, pre_cfg, g, seed=3, supernet=True)
     torch.cuda.reset_peak_memory_stats(dev)
     state, _, dt_a = run("search A", step, state, train_b, n_warm=2)
     print(f"[search A] bf16, uniform: {audio_s / dt_a:.1f} audio-s/s; peak "
@@ -495,10 +809,32 @@ def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
                                   alpha_lr_scale=1.0),
         search_mode=SearchMode.GUMBEL, train_theta=False, train_alpha=True,
         bn_frozen=True)
-    # the script restarts the step count (search_flagship_synthetic.py:97)
-    state = dataclasses.replace(state, step=0)
+    # the handoff goes through a checkpoint, as the script's
+    # (search_flagship_synthetic.py:57-97), which restarts the step count
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        path = save_checkpoint(ck, len(train_b), state, meta={
+            "model": asdict_config(darts), "trainer": asdict_config(pre_cfg),
+            "supernet": True})
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path + ".npz")
+        t0 = time.perf_counter()
+        loaded, ck_step, meta = load_checkpoint(ck, init_train_state(
+            darts, pre_cfg, torch.Generator().manual_seed(9), dev,
+            supernet=True))
+        t_load = time.perf_counter() - t0
+    _check(ck_step == len(train_b) and meta["supernet"] is True,
+           "stage A's checkpoint step and meta")
+    _check(_states_equal(torch, loaded, state),
+           "the loaded supernet state equals the saved one leaf for leaf")
+    print(f"[search handoff] stage A -> checkpoint ({size:,}-byte .npz, "
+          f"saved in {t_save:.1f} s, loaded in {t_load:.1f} s) -> stage B; "
+          f"loaded state equals the saved one leaf for leaf, bit for bit",
+          flush=True)
+    state = dataclasses.replace(loaded, step=0)
+    del loaded
     before = convert.supernet_state_to_numpy(state)
-    step_b = make_train_step(darts, cv_cfg, g, generator=gen, supernet=True)
+    step_b = make_train_step(darts, cv_cfg, g, seed=3, supernet=True)
     torch.cuda.reset_peak_memory_stats(dev)
     state, ms_b, _ = run("search B", step_b, state, dev_b)
     after = convert.supernet_state_to_numpy(state)
@@ -559,10 +895,10 @@ def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
     _check(set(bstate.alphas) == {"bottleneck"} and bshape == (
         bdarts.num_layers, len(bdarts.bottleneck_groups)), "alphas [L, C]")
     bstate, _, _ = run("search bottleneck A", make_train_step(
-        bdarts, pre_cfg, g, generator=gen, supernet=True), bstate, btrain_b)
+        bdarts, pre_cfg, g, seed=3, supernet=True), bstate, btrain_b)
     bcv = cv_cfg.replace(flops_coef=1e-4)
     bstate, ms_bb, _ = run("search bottleneck B", make_train_step(
-        bdarts, bcv, g, generator=gen, supernet=True), bstate, bdev_b)
+        bdarts, bcv, g, seed=3, supernet=True), bstate, bdev_b)
     eb = [float(m["expected_bottleneck"]) for m in ms_bb]
     dims, _ = extract_bottlenecks(
         bstate.alphas["bottleneck"].cpu().numpy(),
@@ -864,7 +1200,9 @@ def main() -> int:
     _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
            "f32 grad_norm kernel vs plain")
 
-    del state, st0, step, step32, batches, g
+    del state, st0, step, step32
+    resident = batches[0]
+    del batches
     dense, dense_bundle, dense_g = _dense_phase(torch, dev, gpu, utts,
                                                 phone_seqs, topo, iv_rng)
     search = _search_phase(
@@ -875,6 +1213,15 @@ def main() -> int:
         print(f"[launches] {row['name']}: dense training {row['launches']}, "
               f"search {search[key]}", flush=True)
         row["launches"] += search[key]
+    del dense_bundle, dense_g
+
+    # ---- 7. the step fed from a TEGS shard through the native loader ----
+    loader_launches = _loader_phase(torch, dev, gpu, chunks, g, model_cfg,
+                                    trainer_cfg, resident)
+    for k in ("fwd", "bwd"):
+        print(f"[launches] blocked_den_{k}: training {launches[k]}, "
+              f"loader-fed phase {loader_launches[k]}", flush=True)
+        launches[k] += loader_launches[k]
 
     kernels = [
         {"name": "blocked_den_fwd", "route": "cuda",

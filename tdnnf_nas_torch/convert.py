@@ -81,21 +81,26 @@ def supernet_state_to_numpy(state: TrainState):
             _adam_to_numpy(state.alpha_opt_state), state.step)
 
 
+_SUP_ARRAYS = ("trans", "state_pdf", "init", "final", "mask", "next_w")
+
+
+def map_batch(fn, batch: dict) -> dict:
+    """``{"feats", "sup", "ivectors"?}`` with ``fn(key, array)`` applied to
+    each array: "feats", "ivectors" and "sup.<field>" for every array of
+    the supervision (a None ``next_w`` stays None)."""
+    sup = batch["sup"]
+    out = {
+        "feats": fn("feats", batch["feats"]),
+        "sup": dataclasses.replace(sup, **{
+            f: fn(f"sup.{f}", getattr(sup, f)) for f in _SUP_ARRAYS
+            if getattr(sup, f) is not None}),
+    }
+    if batch.get("ivectors") is not None:
+        out["ivectors"] = fn("ivectors", batch["ivectors"])
+    return out
+
+
 def batch_to_torch(batch: dict, device=DEFAULT_DEVICE):
     """Host numpy batch (``data.egs.batch_iterator``) -> tensors on device."""
     device = resolve_device(device)
-
-    def dev(a):
-        return torch.as_tensor(a).to(device)
-
-    sup = batch["sup"]
-    out = {
-        "feats": dev(batch["feats"]),
-        "sup": dataclasses.replace(
-            sup, trans=dev(sup.trans), state_pdf=dev(sup.state_pdf),
-            init=dev(sup.init), final=dev(sup.final), mask=dev(sup.mask),
-            next_w=None if sup.next_w is None else dev(sup.next_w)),
-    }
-    if batch.get("ivectors") is not None:
-        out["ivectors"] = dev(batch["ivectors"])
-    return out
+    return map_batch(lambda _, a: torch.as_tensor(a).to(device), batch)

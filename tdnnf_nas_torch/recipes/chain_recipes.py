@@ -9,7 +9,10 @@ stages as Python functions.
                     left-2 tree gives the composed den FSA in superblocked
                     form.  ``DataBundle.egs`` cuts the chunks for a model's
                     (or supernet's) receptive field.
-  train_model       the iteration loop (`steps/nnet3/chain/train.py`)
+  train_model       the iteration loop (`steps/nnet3/chain/train.py`),
+                    fed by ``batch_iterator`` or a TEGS shard's native
+                    loader through the CUDA-stream prefetcher, with
+                    checkpoints
   run_offset_search_pipeline
                     uniform one-hot pretrain (95%) -> alpha-only cv-update
                     on the 5% dev split, theta and BN frozen -> beam-search
@@ -18,13 +21,13 @@ stages as Python functions.
                     the same for the nested-mask bottleneck search, with
                     the FLOPs penalty in the cv-update
 
-Checkpoints, the data-parallel mesh, the prefetcher and the decoding
-recipes wait for later slices.
+The data-parallel mesh and the decoding recipes wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Optional, Tuple
 
@@ -32,9 +35,12 @@ import numpy as np
 import torch
 
 from tdnnf_nas_torch import convert
+from tdnnf_nas_torch.core.checkpoint import save_checkpoint
+from tdnnf_nas_torch.core.config import asdict_config
 from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.core.metrics import MetricsLogger
 from tdnnf_nas_torch.data.egs import EgsConfig, batch_iterator, make_egs
+from tdnnf_nas_torch.data.egs_file import NativeEgsLoader
 from tdnnf_nas_torch.graphs.den_graph import (CompiledDenFsa,
                                               build_denominator_graph,
                                               compile_denominator_fsa,
@@ -47,6 +53,7 @@ from tdnnf_nas_torch.models.tdnnf import TdnnfModelConfig, model_context
 from tdnnf_nas_torch.nas.search import (child_config_from_arch,
                                         extract_bottlenecks, extract_offsets)
 from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph, DenGraphArrays
+from tdnnf_nas_torch.parallel.mesh import prefetch_to_device
 from tdnnf_nas_torch.train.trainer import (TrainerConfig, TrainState,
                                            init_train_state, make_train_step)
 
@@ -110,17 +117,18 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
     """Estimate the phone LM, build the den graph, split train/dev.
 
     The 95/5 split mirrors `Prepare_NAS_data.sh:5-7`.  ``phone_lm_order >
-    2`` or a tree with context_width > 2 takes the composed den FSA and its
-    blocked export, which raises ValueError when it exceeds its size budget
-    (the factored fallback is not ported); otherwise the bigram LM gives
-    the dense den graph.
+    2``, a tree with context_width > 2 or one with a right context takes
+    the composed den FSA and its blocked export, which raises ValueError
+    when it exceeds its size budget (the factored fallback is not ported;
+    the +-1 composition raises NotImplementedError); otherwise the bigram
+    LM gives the dense den graph.
     """
     n_dev = max(1, int(len(utts) * dev_fraction))
     dev, train = utts[:n_dev], utts[n_dev:]
     iv_dev = ivectors[:n_dev] if ivectors is not None else None
     iv_train = ivectors[n_dev:] if ivectors is not None else None
-    composed = (phone_lm_order > 2
-                or getattr(tree, "context_width", 1) > 2)
+    composed = (phone_lm_order > 2 or getattr(tree, "context_width", 1) > 2
+                or getattr(tree, "right_context", 0) > 0)
     if not composed:
         lm = estimate_phone_lm(phone_seqs, num_phones)
         den = build_denominator_graph(lm, topo, tree)
@@ -162,49 +170,77 @@ def train_model(
     init_state: Optional[TrainState] = None,
     dev: bool = False,
     metrics: Optional[MetricsLogger] = None,
+    ckpt_dir: Optional[str] = None,
+    ckpt_interval: int = 0,
+    prefetch: int = 2,
+    egs_path: Optional[str] = None,
     log_every: int = 0,
     device=DEFAULT_DEVICE,
 ) -> Tuple[TrainState, MetricsLogger]:
     """The iteration loop (`train.py:473-570` equivalent).
 
     Batches come from ``batch_iterator`` shuffled by
-    ``RandomState(seed)`` (the reference's batch order), go to ``device``
-    one per step, and metrics logging is deferred (core/metrics.py).  The
-    initial state is drawn from ``torch.Generator().manual_seed(seed)``
-    and the step's samples from a generator on ``device`` seeded
-    ``seed + 1``.  ``log_every`` prints step/objf/rate progress.
+    ``RandomState(seed)`` (the reference's batch order) or, given
+    ``egs_path``, from that TEGS shard through ``NativeEgsLoader`` seeded
+    ``seed`` (a shard holds no i-vectors).  With ``prefetch`` > 0 they
+    reach ``device`` through ``parallel.prefetch_to_device``, staged that
+    many batches ahead; with 0, one ``convert.batch_to_torch`` per step.
+    Metrics logging is deferred (core/metrics.py).  The initial state is
+    drawn from ``torch.Generator().manual_seed(seed)``, and step k's
+    samples from a generator seeded ``step_seed(seed + 1, k)``, so a run
+    resumed from a checkpoint continues as the unbroken run would.  With
+    ``ckpt_dir`` the state is saved every ``ckpt_interval`` steps (if >
+    0) and after the last, the configs in the checkpoint's meta.
+    ``log_every`` prints step/objf/rate progress.
     """
     device = resolve_device(device)
-    chunks = bundle.egs(model_cfg if not supernet else None,
-                        chunk_width=chunk_width, dev=dev,
-                        supernet_cfg=model_cfg if supernet else None)
-    if len(chunks) < batch_size:
-        raise ValueError(f"only {len(chunks)} chunks for batch {batch_size}")
     state = init_state
     if state is None:
         state = init_train_state(model_cfg, trainer_cfg,
                                  torch.Generator().manual_seed(seed),
                                  device, supernet=supernet)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
     step = make_train_step(model_cfg, trainer_cfg,
-                           den_on_device(bundle, device), generator=gen,
+                           den_on_device(bundle, device), seed=seed + 1,
                            supernet=supernet)
     metrics = metrics or MetricsLogger()
-    it = batch_iterator(chunks, batch_size=batch_size,
-                        rng=np.random.RandomState(seed))
+    meta = {"model": asdict_config(model_cfg),
+            "trainer": asdict_config(trainer_cfg), "supernet": supernet}
+    loader = None
+    if egs_path is not None:
+        loader = NativeEgsLoader(egs_path, batch_size, seed=seed)
+        host = iter(loader)
+    else:
+        chunks = bundle.egs(model_cfg if not supernet else None,
+                            chunk_width=chunk_width, dev=dev,
+                            supernet_cfg=model_cfg if supernet else None)
+        if len(chunks) < batch_size:
+            raise ValueError(
+                f"only {len(chunks)} chunks for batch {batch_size}")
+        host = batch_iterator(chunks, batch_size=batch_size,
+                              rng=np.random.RandomState(seed))
+    host = itertools.islice(host, num_steps)
+    it = (prefetch_to_device(host, size=prefetch, device=device) if prefetch
+          else (convert.batch_to_torch(b, device) for b in host))
     t_last, i_last = time.time(), 0
-    for i, batch in enumerate(it):
-        if i >= num_steps:
-            break
-        state, m = step(state, convert.batch_to_torch(batch, device))
-        metrics.log(i, m)
-        if log_every and (i + 1) % log_every == 0:
-            now = time.time()
-            rate = (i + 1 - i_last) / max(now - t_last, 1e-9)
-            t_last, i_last = now, i + 1
-            print(f"[train] step {i + 1}/{num_steps} "
-                  f"objf_mmi={metrics.last('objf_mmi'):.4f} "
-                  f"({rate:.1f} steps/s)", flush=True)
+    try:
+        for i, batch in enumerate(it):
+            state, m = step(state, batch)
+            metrics.log(i, m)
+            if log_every and (i + 1) % log_every == 0:
+                now = time.time()
+                rate = (i + 1 - i_last) / max(now - t_last, 1e-9)
+                t_last, i_last = now, i + 1
+                print(f"[train] step {i + 1}/{num_steps} "
+                      f"objf_mmi={metrics.last('objf_mmi'):.4f} "
+                      f"({rate:.1f} steps/s)", flush=True)
+            if ckpt_dir and ckpt_interval and (i + 1) % ckpt_interval == 0:
+                save_checkpoint(ckpt_dir, i + 1, state, meta)
+    finally:
+        it.close()  # a prefetcher stops and joins its worker first
+        if loader is not None:
+            loader.close()
+    if ckpt_dir:
+        save_checkpoint(ckpt_dir, num_steps, state, meta)
     return state, metrics
 
 

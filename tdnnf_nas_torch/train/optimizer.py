@@ -28,10 +28,17 @@ class OptimizerConfig(Config):
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
+    momentum: float = 0.0  # sgd only
     max_change_per_leaf: float = 0.75  # Kaldi per-component max-change
     max_change_global: float = 2.0  # Kaldi --trainer.max-param-change
     l2_regularize: float = 0.0  # decoupled weight decay (per-leaf scalable)
     alpha_lr_scale: float = 1.0
+    # the reference's kind="ng" settings, kept so that its configs (and
+    # its checkpoints' meta) carry across; unused until that kind is ported
+    ng_alpha: float = 4.0
+    ng_decay: float = 0.95
+    ng_update_period: int = 10
+    ng_max_dim: int = 2048
 
 
 def learning_rate_at(step: int, cfg: OptimizerConfig) -> float:

@@ -137,30 +137,49 @@ def _with_grad(tree):
     return leaves, tree_unflatten([(p, x) for (p, _), x in zip(pl, leaves)])
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of the draws of step ``step``: a function of (seed, step)
+    alone, as the reference's ``fold_in(key, state.step)``
+    (`train/trainer.py:198` there), so a run resumed from a checkpoint
+    draws at step k what an unbroken run draws there."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0])
+
+
 def make_train_step(model_cfg, trainer_cfg: TrainerConfig,
                     den: Union[BlockedDenGraph, DenGraphArrays],
-                    generator: Optional[torch.Generator] = None,
+                    seed: Optional[int] = None,
                     supernet: bool = False):
     """Build the train step.
 
     step(state, batch) -> (new_state, metrics)
     batch: {"feats": [B,T_in,F], "ivectors": [B,D] (optional),
     "sup": ChunkSupervision of tensors} on the den graph's device
-    (``convert.batch_to_torch``).  ``generator`` (on that device) draws
-    dropout masks and a supernet's path samples; the uniform and gumbel
-    search modes need one.  Parameter gradients are always taken, for
-    ``grad_norm``, even when ``train_theta`` is off (as in the reference);
-    alpha gradients only when ``train_alpha`` is on.
+    (``convert.batch_to_torch``).  With a ``seed``, each step draws its
+    dropout masks and a supernet's path samples from a generator on the
+    batch's device seeded ``step_seed(seed, state.step)``; the uniform and
+    gumbel search modes need one, and without it there is no dropout.
+    Parameter gradients are always taken, for ``grad_norm``, even when
+    ``train_theta`` is off (as in the reference); alpha gradients only
+    when ``train_alpha`` is on.
     """
     _, opt_update = make_optimizer(trainer_cfg.optimizer, _wd_scale)
     _, alpha_update = make_optimizer(trainer_cfg.optimizer)
     num_steps = trainer_cfg.optimizer.num_steps
     interval = trainer_cfg.semiorth_interval
     base_cfg = model_cfg.base if supernet else model_cfg
+    generators = {}  # one per device, reseeded at every step
 
     def step(state: TrainState, batch):
         tau = _tau_at(state.step, trainer_cfg, num_steps)
         dropout_p = _dropout_at(state.step, trainer_cfg, num_steps)
+        generator = None
+        if seed is not None:
+            dev = batch["feats"].device
+            generator = generators.get(dev)
+            if generator is None:
+                generator = generators[dev] = torch.Generator(dev)
+            generator.manual_seed(step_seed(seed, state.step))
         p_leaves, params = _with_grad(state.params)
         a_leaves, alphas = [], state.alphas
         if trainer_cfg.train_alpha and state.alphas:

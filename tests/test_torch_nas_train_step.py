@@ -99,8 +99,7 @@ def _run_both(jc, tc, jtc, ttc, jst, tst, den_pair, batch_pair, n):
     jbatch, tbatch = batch_pair
     key = jax.random.PRNGKey(3)
     jstep = jtrain.make_train_step(jc, jtc, jden, supernet=True, donate=False)
-    tstep = ttrain.make_train_step(tc, ttc, tden, supernet=True,
-                                   generator=torch.Generator())
+    tstep = ttrain.make_train_step(tc, ttc, tden, supernet=True, seed=0)
     jms, tms = [], []
     for _ in range(n):
         step_key = jax.random.fold_in(key, jst.step)
