@@ -61,7 +61,23 @@ plain PyTorch versions.  Phases, each raising on failure:
      bit: a bf16-payload step against its float32-payload step,
      prefetched batches against synchronous copies, and a step after a
      checkpoint round trip against the step of the unbroken state (with
-     the .npz size).
+     the .npz size);
+  8. the decode path at the flagship's width (``_decode_phase``): the
+     smoke word corpus of ``scripts/e2e_flagship.py:70-84`` (46 phones,
+     vocab 2,500, 4,000 LM text sentences, lookahead lags, 8 topics) at
+     800 utterances, 40 held out, with phase 1's 6,034-pdf left-2 tree
+     and seeded per-speaker i-vectors; its 4-gram blocked den; 200 bf16
+     ``train_model`` steps of the flagship 7q at B = 64 with launch
+     counters reset (objf finite, each blocked kernel launched once per
+     step); the trigram HCLG (``split_unigram=False``) and the 4-gram of
+     ``e2e_flagship.build_graph``; ``forward_corpus`` on the card (ms/utt,
+     output frames/s) and, in float32, against the CPU (rtol/atol 1e-4);
+     ``decode_corpus_words`` (C++ beam search, beam 16, max_active
+     10,000, lattices, 2 forked workers: WER, RTF), the C++ search
+     against the numpy one on 3 utterances (words, scores within 1e-3),
+     4-gram lattice rescoring (WER) and the lattice oracle; forced
+     alignment and the den Viterbi of ``decode_corpus`` on phase 5's
+     biphone bundle, each on the card against the CPU.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
@@ -944,6 +960,296 @@ def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
     return launches
 
 
+def _rel_ok(a, b, rtol: float, atol: float = 0.0) -> bool:
+    """|a - b| <= atol + rtol * |b| everywhere (numpy's allclose rule)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return bool(np.all(np.abs(a - b) <= atol + rtol * np.abs(b)))
+
+
+# Phase 8's sizes: the smoke word corpus of scripts/e2e_flagship.py:70-84
+# (vocab 2,500, 4,000 LM text sentences) at 800 utterances, 40 held out.
+DECODE_SIZES = dict(num_utts=800, vocab_size=2500, num_text_sents=4000,
+                    n_test=40, train_steps=200, n_check=4, n_numpy=3,
+                    n_oracle=10, max_active=10000)
+
+
+def _decode_phase(torch, dev, gpu, tree, topo, dense_bundle):
+    """Phase 8, the decode path at the flagship's width: the word corpus
+    of scripts/e2e_flagship.py:70-84 (smoke vocabulary) with phase 1's
+    6,034-pdf left-2 tree, the 4-gram blocked den, ``train_model`` on the
+    flagship 7q (bf16, ``den_obs_bf16``), the trigram HCLG and the 4-gram
+    rescoring LM of ``e2e_flagship.build_graph``, ``forward_corpus`` on
+    the card (checked against the CPU in float32), the C++ beam search
+    with lattices in 2 forked workers (checked against the numpy search),
+    4-gram lattice rescoring and the lattice oracle, then the Viterbi
+    decoders on the card against the CPU: forced alignment and the phone
+    decode on phase 5's biphone bundle.  Returns the blocked kernels'
+    launches over the training steps."""
+    from tdnnf_nas_torch.core.metrics import MetricsLogger
+    from tdnnf_nas_torch.data import native
+    from tdnnf_nas_torch.data.synthetic import (WordCorpusConfig,
+                                                make_word_corpus)
+    from tdnnf_nas_torch.decode.align import align_corpus, align_utterance
+    from tdnnf_nas_torch.decode.beam import beam_decode_sparse
+    from tdnnf_nas_torch.decode.graph_sparse import build_hclg_sparse
+    from tdnnf_nas_torch.decode.lattice import (lattice_oracle_wer,
+                                                rescore_lattice)
+    from tdnnf_nas_torch.decode.scoring import score_corpus
+    from tdnnf_nas_torch.decode.viterbi import graph_log_arrays, viterbi_decode
+    from tdnnf_nas_torch.decode.wfst import Lexicon
+    from tdnnf_nas_torch.lm.ngram import estimate_ngram_lm
+    from tdnnf_nas_torch.models import TdnnfModelConfig
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.recipes.chain_recipes import (decode_corpus,
+                                                       decode_corpus_words,
+                                                       forward_corpus,
+                                                       prepare_data,
+                                                       train_model)
+    from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
+                                       TrainerConfig, init_train_state)
+
+    sz = DECODE_SIZES
+    t_phase = time.perf_counter()
+    # ---- 8.1 host setup through the port's numpy copies ----
+    t0 = time.perf_counter()
+    cfg = WordCorpusConfig(
+        vocab_size=sz["vocab_size"], num_phones=46, feat_dim=40,
+        num_utts=sz["num_utts"], min_words=6, max_words=14, min_pron=3,
+        max_pron=7, mean_dur=3.5, emission_noise=4.5, context_shift=1.0,
+        num_speakers=40, speaker_shift=1.0,
+        num_text_sents=sz["num_text_sents"],
+        lookahead_lags=(3, 8, 14, 20, 26, 32, 38, 44), lookahead_dim=12,
+        lookahead_scale=2.5, num_topics=8, seed=0)
+    utts, prons, word_seqs, _, _, _, text = make_word_corpus(cfg)
+    n_test = sz["n_test"]
+    test, train = utts[:n_test], utts[n_test:]
+    t_corpus = time.perf_counter() - t0
+    # i-vector extraction is not ported: seeded per-speaker vectors of dim
+    # 100 with small per-utterance noise stand in for them
+    iv_rng = np.random.RandomState(11)
+    spk_iv = iv_rng.randn(cfg.num_speakers, 100).astype(np.float32)
+    ivecs = [spk_iv[u.speaker] + 0.1 * iv_rng.randn(100).astype(np.float32)
+             for u in utts]
+    iv_test, iv_train = ivecs[:n_test], ivecs[n_test:]
+    t0 = time.perf_counter()
+    bundle = prepare_data(train, [u.phones for u in train], tree, topo,
+                          cfg.num_phones, dev_fraction=0.05,
+                          phone_lm_order=4, num_extra_lm_states=2000,
+                          ivectors=iv_train)
+    t_den = time.perf_counter() - t0
+    frames = sum(len(u.pdf_align) for u in utts)
+    test_frames = sum(len(u.pdf_align) for u in test)
+    test_audio_s = test_frames * 0.03
+    print(f"[decode setup] word corpus {len(utts)} utts ({frames} output "
+          f"frames, {frames * 0.03 / 3600:.2f} h), vocab {cfg.vocab_size}, "
+          f"{len(text)} LM text sentences in {t_corpus:.1f} s; phase 1's "
+          f"tree: pdfs={tree.num_pdfs}; 4-gram den: "
+          f"states={bundle.den_arrays.num_states} (dense export "
+          f"{'kept' if bundle.den is not None else 'none, S > 4,096'}) in "
+          f"{t_den:.1f} s; {len(train)} train / {n_test} test utts "
+          f"({test_audio_s:.1f} audio-s)", flush=True)
+    _check(bundle.den_fsa is not None, "the composed (4-gram) den")
+
+    # ---- 8.2 train the flagship 7q (bf16, den_obs_bf16) ----
+    steps = sz["train_steps"]
+    mc = TdnnfModelConfig(num_pdfs=tree.num_pdfs)
+    tc = TrainerConfig(
+        objective=ChainObjectiveConfig(den_obs_bf16=True),
+        optimizer=OptimizerConfig(kind="adam", lr_initial=1e-3,
+                                  lr_final=1e-4, num_steps=steps),
+        dropout_schedule=((0.0, 0.0), (0.2, 0.3), (0.5, 0.3), (1.0, 0.0)))
+    t0 = time.perf_counter()
+    chunks = bundle.egs(mc, chunk_width=50, max_phones_per_chunk=40)
+    t_egs = time.perf_counter() - t0
+    bdc.blocked_den_fwd_cuda.launches = 0
+    bdc.blocked_den_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    state, log = train_model(bundle, mc, tc, steps, batch_size=64,
+                             chunk_width=50, seed=0, max_phones_per_chunk=40,
+                             metrics=MetricsLogger(), device=dev)
+    objf = [v for _, v in log.series["objf_mmi"]]
+    t_train = time.perf_counter() - t0
+    launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
+                "bwd": bdc.blocked_den_bwd_cuda.launches}
+    print(f"[decode train] {len(chunks)} chunks cut in {t_egs:.1f} s; "
+          f"{steps} bf16 steps (B=64, chunk 50, den_obs_bf16) in "
+          f"{t_train:.1f} s = {t_train / steps * 1e3:.1f} ms/step; objf_mmi "
+          f"step 1 {objf[0]:.4f}, {steps // 2} {objf[steps // 2 - 1]:.4f}, "
+          f"{steps} {objf[-1]:.4f}; launches fwd={launches['fwd']} "
+          f"bwd={launches['bwd']} ({gpu})", flush=True)
+    _check(len(objf) == steps and all(np.isfinite(objf)),
+           "objf_mmi finite at every decode-phase training step")
+    _check(launches["fwd"] == launches["bwd"] == steps,
+           "each blocked kernel launched once per training step")
+
+    # ---- 8.3 LMs (e2e_flagship.build_graph) and the trigram HCLG ----
+    t0 = time.perf_counter()
+    word_sym = [f"w{w}" for w in range(cfg.vocab_size)]
+    trans_text = [[word_sym[w] for w in u.words] for u in train]
+    full_text = [[word_sym[w] for w in ws] for ws in text] + trans_text
+    tg_text = ([[word_sym[w] for w in ws] for ws in text[: len(text) // 10]]
+               + trans_text)
+    lm3 = estimate_ngram_lm(tg_text, order=3)
+    lm4 = estimate_ngram_lm(full_text, order=4)
+    t_lm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = build_hclg_sparse(Lexicon(prons), lm3, word_sym, topo, tree,
+                          split_unigram=False)
+    t_hclg = time.perf_counter() - t0
+    print(f"[decode graph] LMs: tg {len(lm3.logprobs)} ngrams "
+          f"({len(tg_text)} sents), fg {len(lm4.logprobs)} "
+          f"({len(full_text)} sents) in {t_lm:.1f} s; HCLG "
+          f"{g.num_states} states, {g.num_arcs} arcs in {t_hclg:.1f} s",
+          flush=True)
+
+    # ---- 8.4 the forward on the card, and against the CPU in float32 ----
+    fwd = lambda d, cfg_, us, ivs, bs=16: forward_corpus(
+        None, cfg_, state, us, bucket=64, batch_size=bs, ivectors=ivs,
+        device=d)
+    t0 = time.perf_counter()
+    outs = fwd(dev, mc, test, iv_test)
+    t_fwd_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = fwd(dev, mc, test, iv_test)
+    t_fwd = time.perf_counter() - t0
+    _check(all(o.shape == (len(u.pdf_align), tree.num_pdfs)
+               and np.isfinite(o).all() for o, u in zip(outs, test)),
+           "forward outputs finite, [T_out, 6034] per utterance")
+    # what the forward moves back: float32 [16, T_pad, P] per batch
+    pads = {}
+    for u in test:
+        tp = -(-len(u.pdf_align) // 64) * 64
+        pads[tp] = pads.get(tp, 0) + 1
+    out_bytes = sum(-(-n // 16) * 16 * tp * tree.num_pdfs * 4
+                    for tp, n in pads.items())
+    idle = _idle_share(torch, lambda: fwd(dev, mc, test, iv_test))
+    print(f"[decode forward] {n_test} utts, B=16, bucket 64, bf16: "
+          f"{t_fwd * 1e3 / n_test:.2f} ms/utt, {test_frames / t_fwd:,.0f} "
+          f"output frames/s (first call {t_fwd_first * 1e3 / n_test:.2f} "
+          f"ms/utt); {len(pads)} buckets, {out_bytes / 1e6:.0f} MB of "
+          f"float32 outputs to the host ({out_bytes / t_fwd / 1e9:.1f} GB/s "
+          f"over the call); profiled: " + (
+              "no device kernel seen" if idle is None else
+              f"kernels {idle[1]:.1f} ms, card idle {idle[0]:.1%} of the "
+              f"{idle[2]:.1f} ms from first to last kernel") + f" ({gpu})",
+          flush=True)
+    # float32 on the card (TF32 off) and on the CPU from the same state
+    mc32 = mc.replace(compute_dtype="float32")
+    n_chk = sz["n_check"]
+    chk, iv_chk = test[:n_chk], iv_test[:n_chk]
+    card32 = fwd(dev, mc32, chk, iv_chk, bs=n_chk)
+    t0 = time.perf_counter()
+    cpu32 = fwd("cpu", mc32, chk, iv_chk, bs=n_chk)
+    t_cpu = time.perf_counter() - t0
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card32, cpu32))
+    ok = all(_rel_ok(a, b, 1e-4, 1e-4) for a, b in zip(card32, cpu32))
+    print(f"[decode forward check] float32 card vs CPU on {n_chk} utts: "
+          f"max|err|={err:.3e} (tol rtol 1e-4 + atol 1e-4, the model "
+          f"test's bar); CPU forward {t_cpu:.1f} s", flush=True)
+    _check(ok, "card forward equals the CPU forward within 1e-4")
+
+    # ---- 8.5 decode: beam search with lattices, rescoring, oracle ----
+    t0 = time.perf_counter()
+    native.get_decoder_lib()  # built in phase 0; a build is not decoding
+    t_lib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = decode_corpus_words(None, mc, state, g, test, beam=16.0,
+                              max_active=sz["max_active"], lattice=True,
+                              lattice_beam=8.0, num_workers=2,
+                              ivectors=iv_test, device=dev)
+    t_dec = time.perf_counter() - t0
+    print(f"[decode words] first-pass (trigram) WER {rep['wer']:.2f}% "
+          f"(sub {rep['sub']} ins {rep['ins']} del {rep['del']} of "
+          f"{rep['ref_len']}) in {t_dec:.1f} s = RTF "
+          f"{t_dec / test_audio_s:.4f} over {test_audio_s:.1f} audio-s "
+          f"(beam 16, max_active {sz['max_active']}, lattice beam 8, 2 "
+          f"forked workers); forward {t_fwd:.2f} s of it "
+          f"({t_fwd / t_dec:.1%}); decoder library ready in {t_lib:.1f} s "
+          f"before it ({gpu})", flush=True)
+    _check(rep["wer"] < 100.0, "first-pass WER below 100%")
+    short = sorted(range(n_test), key=lambda i: len(test[i].pdf_align))
+    for i in short[:sz["n_numpy"]]:
+        kw = dict(beam=16.0, max_active=sz["max_active"])
+        nat = beam_decode_sparse(outs[i], g, **kw)
+        t0 = time.perf_counter()
+        ref = beam_decode_sparse(outs[i], g, native=False, **kw)
+        t_np = time.perf_counter() - t0
+        print(f"[decode native vs numpy] utt {i} ({len(outs[i])} frames): "
+              f"words equal {nat.words == ref.words}, score "
+              f"{nat.score:.4f} vs {ref.score:.4f} (tol 1e-3); numpy "
+              f"search {t_np:.1f} s", flush=True)
+        _check(nat.words == ref.words and abs(nat.score - ref.score) <= 1e-3,
+               "the native decoder equals the numpy decoder")
+    refs = [list(u.words) for u in test]
+    t0 = time.perf_counter()
+    wtt = lambda w: word_sym[w]
+    hyps4 = []
+    for lat in rep["lattices"]:
+        best = rescore_lattice(lat, lm3, lm4, lm_scale=1.0,
+                               word_to_token=wtt, n=1)
+        hyps4.append(best[0][0] if best else [])
+    wer4 = score_corpus(refs, hyps4)["wer"]
+    t_resc = time.perf_counter() - t0
+    # the oracle walks every arc in Python: a fixed subset of lattices
+    t0 = time.perf_counter()
+    n_or = sz["n_oracle"]
+    oracle = [100.0 * lattice_oracle_wer(lat, r) / max(len(r), 1)
+              for lat, r in zip(rep["lattices"][:n_or], refs[:n_or])]
+    arcs = [lat.num_arcs for lat in rep["lattices"]]
+    print(f"[decode rescore] 4-gram lattice rescoring WER {wer4:.2f}% in "
+          f"{t_resc:.1f} s; mean lattice oracle WER {np.mean(oracle):.2f}% "
+          f"over the first {len(oracle)} lattices in "
+          f"{time.perf_counter() - t0:.1f} s; lattices {min(arcs)}-"
+          f"{max(arcs)} arcs (median {int(np.median(arcs))})", flush=True)
+    _check(wer4 < 100.0, "4-gram rescored WER below 100%")
+
+    # ---- 8.6 Viterbi on the card against the CPU ----
+    t0 = time.perf_counter()
+    al = {d: align_corpus(bundle, mc32, state, chk, ivectors=iv_chk,
+                          device=d) for d in (dev, "cpu")}
+    same = all((a.begins, a.ends) == (b.begins, b.ends)
+               for a, b in zip(al[dev], al["cpu"]))
+    sc = [[align_utterance(o, u.phones, bundle.lm, topo, tree, device=d)[2]
+           for d in (dev, "cpu")] for o, u in zip(card32, chk)]
+    print(f"[decode align] {n_chk} utts: begins/ends card == CPU {same}; "
+          f"Viterbi scores card vs CPU max rel diff "
+          f"{max(abs(a - b) / abs(b) for a, b in sc):.2e} (tol 1e-4) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _check(same, "forced alignment equal on the card and the CPU")
+    _check(all(_rel_ok(a, b, 1e-4) for a, b in sc),
+           "alignment Viterbi scores within 1e-4 relative")
+    t0 = time.perf_counter()
+    dcfg = TdnnfModelConfig(num_pdfs=dense_bundle.den.num_pdfs,
+                            compute_dtype="float32")
+    dstate = init_train_state(dcfg, TrainerConfig(),
+                              torch.Generator().manual_seed(8), dev)
+    dutts = dense_bundle.dev_utts[:sz["n_check"]]
+    per = decode_corpus(dense_bundle, dcfg, dstate, dutts, device=dev)
+    douts = forward_corpus(None, dcfg, dstate, dutts, batch_size=len(dutts),
+                           device=dev)
+    vit = {}
+    for d in (dev, "cpu"):
+        arrays = graph_log_arrays(dense_bundle.den, d)
+        vit[d] = [viterbi_decode(torch.tensor(o[None], device=d), *arrays)
+                  for o in douts]
+    v_same = all(torch.equal(a[1].cpu(), b[1]) for a, b in zip(vit[dev],
+                                                                vit["cpu"]))
+    v_sc = [(float(a[0][0]), float(b[0][0]))
+            for a, b in zip(vit[dev], vit["cpu"])]
+    print(f"[decode phone] decode_corpus on phase 5's biphone bundle "
+          f"(den S={dense_bundle.den.num_states}), {len(dutts)} dev utts, "
+          f"random weights: PER {per['wer']:.2f}%; Viterbi card vs CPU: "
+          f"paths equal {v_same}, max rel score diff "
+          f"{max(abs(a - b) / abs(b) for a, b in v_sc):.2e} (tol 1e-4) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _check(v_same and all(_rel_ok(a, b, 1e-4) for a, b in v_sc),
+           "den Viterbi on the card equals the CPU's")
+    print(f"[decode phase] {time.perf_counter() - t_phase:.1f} s in all, "
+          f"{time.perf_counter() - t_phase - t_den:.1f} s without the den "
+          f"compile", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -953,7 +1259,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from tdnnf_nas_torch import convert
     from tdnnf_nas_torch.data import (SyntheticCorpusConfig, batch_iterator,
-                                      make_synthetic_corpus)
+                                      make_synthetic_corpus, native)
     from tdnnf_nas_torch.graphs import (accumulate_triphone_stats,
                                         build_clustered_triphone_tree)
     from tdnnf_nas_torch.models import TdnnfModelConfig, count_params
@@ -973,13 +1279,15 @@ def main() -> int:
     print(f"gpu: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # ---- 0. build ----
+    # ---- 0. build: the kernels (nvcc), then the decoders (g++) ----
     t0 = time.perf_counter()
     sos = cuda_build.build()
     bdc._library()
     ddc._library()
-    print(f"[build] {', '.join(so.name for so in sos)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    native.get_decoder_lib()
+    print(f"[build] {', '.join(so.name for so in sos)}, "
+          f"{native.library_path(native.DECODER_SOURCES, 'decoders').name} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 1. flagship host setup (bench.py:113-157) ----
     t0 = time.perf_counter()
@@ -1213,15 +1521,21 @@ def main() -> int:
         print(f"[launches] {row['name']}: dense training {row['launches']}, "
               f"search {search[key]}", flush=True)
         row["launches"] += search[key]
-    del dense_bundle, dense_g
+    del dense_g
 
     # ---- 7. the step fed from a TEGS shard through the native loader ----
     loader_launches = _loader_phase(torch, dev, gpu, chunks, g, model_cfg,
                                     trainer_cfg, resident)
+    del g, chunks, resident
+
+    # ---- 8. the decode path at the flagship's width ----
+    decode_launches = _decode_phase(torch, dev, gpu, tree, topo,
+                                    dense_bundle)
     for k in ("fwd", "bwd"):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
-              f"loader-fed phase {loader_launches[k]}", flush=True)
-        launches[k] += loader_launches[k]
+              f"loader-fed phase {loader_launches[k]}, decode-phase "
+              f"training {decode_launches[k]}", flush=True)
+        launches[k] += loader_launches[k] + decode_launches[k]
 
     kernels = [
         {"name": "blocked_den_fwd", "route": "cuda",

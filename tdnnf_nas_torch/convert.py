@@ -27,6 +27,14 @@ def tree_to_torch(tree, device=DEFAULT_DEVICE):
     return torch.tensor(np.asarray(tree), device=device)
 
 
+def tree_to_device(tree, device):
+    """Nested dict of tensors -> the same on ``device`` (no copy of a
+    tensor already there)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def tree_to_numpy(tree):
     """Nested dict of tensors -> same structure of numpy arrays."""
     if isinstance(tree, dict):

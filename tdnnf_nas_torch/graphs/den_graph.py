@@ -11,8 +11,9 @@ Equivalent of Kaldi's ``chain-make-den-fst``, in two forms:
   ``CompiledDenFsa.to_blocked`` its superblocked export, whose device copy
   is ``ops.fwdbwd.BlockedDenGraph.from_host``.
 
-Not ported yet: the committed +-1 composition, ``to_factored`` and
-``to_state_graph``.
+``CompiledDenFsa.to_state_graph`` is its dense [S,S] export (small
+graphs: the phone decode of ``recipes.chain_recipes.decode_corpus``).
+Not ported yet: the committed +-1 composition and ``to_factored``.
 """
 
 from __future__ import annotations
@@ -146,6 +147,23 @@ class CompiledDenFsa:
     loop_state: Dict[int, int]  # pos_id -> state id
     start_pos: int  # position id at BOS
     pos_trans: Dict[Tuple[int, int], Tuple[int, int]]  # (pos, phone) -> (dest pos, pdf)
+
+    def to_state_graph(self) -> StateGraph:
+        """Dense [S,S] export (tests / small graphs)."""
+        s = self.num_states
+        trans = np.zeros((s, s), np.float64)
+        for dst, sp, w in zip(self.arc_dst, self.arc_src_pos, self.arc_w):
+            lo, hi = self.seg_bounds[sp], self.seg_bounds[sp + 1]
+            trans[lo:hi, dst] += w
+        g = StateGraph(
+            trans=trans.astype(np.float32),
+            state_pdf=self.state_pdf,
+            init=self.init,
+            final=self.final,
+            num_pdfs=self.num_pdfs,
+        )
+        g.validate(stochastic=False)
+        return g
 
     def to_blocked(self, superblocks: Optional[int] = None,
                    enter_pad: int = 4,

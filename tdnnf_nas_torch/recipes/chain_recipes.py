@@ -20,8 +20,15 @@ stages as Python functions.
   run_bottleneck_search_pipeline
                     the same for the nested-mask bottleneck search, with
                     the FLOPs penalty in the cv-update
+  forward_corpus    the batched acoustic forward of whole utterances on
+                    the card (``nnet3-compute``'s batched analogue)
+  decode_corpus     Viterbi phone decode against the dense den + PER
+  decode_corpus_words
+                    forward on the card, then the sparse-HCLG beam search
+                    (C++ decoder, forked workers) with lattices on the
+                    host, then WER (``steps/nnet3/decode.sh`` + scoring)
 
-The data-parallel mesh and the decoding recipes wait for later slices.
+The data-parallel mesh waits for a later slice.
 """
 
 from __future__ import annotations
@@ -39,8 +46,14 @@ from tdnnf_nas_torch.core.checkpoint import save_checkpoint
 from tdnnf_nas_torch.core.config import asdict_config
 from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.core.metrics import MetricsLogger
-from tdnnf_nas_torch.data.egs import EgsConfig, batch_iterator, make_egs
+from tdnnf_nas_torch.data.egs import (EgsConfig, _pad_feats, batch_iterator,
+                                      make_egs)
+from tdnnf_nas_torch.data import native as _native
 from tdnnf_nas_torch.data.egs_file import NativeEgsLoader
+from tdnnf_nas_torch.decode.beam import beam_decode_sparse
+from tdnnf_nas_torch.decode.scoring import score_corpus
+from tdnnf_nas_torch.decode.viterbi import (graph_log_arrays, path_to_phones,
+                                            viterbi_decode)
 from tdnnf_nas_torch.graphs.den_graph import (CompiledDenFsa,
                                               build_denominator_graph,
                                               compile_denominator_fsa,
@@ -49,7 +62,8 @@ from tdnnf_nas_torch.graphs.phone_lm import (estimate_ngram_phone_lm,
                                              estimate_phone_lm)
 from tdnnf_nas_torch.models.nas import (DartsModelConfig, SearchMode,
                                         supernet_context)
-from tdnnf_nas_torch.models.tdnnf import TdnnfModelConfig, model_context
+from tdnnf_nas_torch.models.tdnnf import (TdnnfModelConfig, apply_model,
+                                          model_context)
 from tdnnf_nas_torch.nas.search import (child_config_from_arch,
                                         extract_bottlenecks, extract_offsets)
 from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph, DenGraphArrays
@@ -61,7 +75,9 @@ from tdnnf_nas_torch.train.trainer import (TrainerConfig, TrainState,
 @dataclasses.dataclass
 class DataBundle:
     lm: object  # PhoneLM (dense den) | NGramPhoneLM (composed den)
-    den: object  # dense StateGraph; None on the composed branch
+    # dense StateGraph; on the composed branch its dense export, or None
+    # above prepare_data's max_dense_states
+    den: object
     # dense: DenGraphArrays kept on the CPU on purpose
     # (DenGraphArrays.from_graph(den, dev) puts it on a device, see
     # den_on_device); composed: the host graphs.den_graph
@@ -113,6 +129,7 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
                  dev_fraction: float = 0.05,
                  phone_lm_order: int = 2,
                  num_extra_lm_states: int = 2000,
+                 max_dense_states: int = 4096,
                  ivectors=None) -> DataBundle:
     """Estimate the phone LM, build the den graph, split train/dev.
 
@@ -120,8 +137,10 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
     2``, a tree with context_width > 2 or one with a right context takes
     the composed den FSA and its blocked export, which raises ValueError
     when it exceeds its size budget (the factored fallback is not ported;
-    the +-1 composition raises NotImplementedError); otherwise the bigram
-    LM gives the dense den graph.
+    the +-1 composition raises NotImplementedError), with its dense
+    ``StateGraph`` in ``den`` when it has at most ``max_dense_states``
+    states (the phone decode's graph); otherwise the bigram LM gives the
+    dense den graph.
     """
     n_dev = max(1, int(len(utts) * dev_fraction))
     dev, train = utts[:n_dev], utts[n_dev:]
@@ -142,8 +161,9 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
                                  order=max(phone_lm_order, 2),
                                  num_extra_lm_states=num_extra_lm_states)
     comp = compile_denominator_fsa(lm, topo, tree)
+    den = comp.to_state_graph() if comp.num_states <= max_dense_states else None
     return DataBundle(
-        lm=lm, den=None, den_arrays=comp.to_blocked(), tree=tree, topo=topo,
+        lm=lm, den=den, den_arrays=comp.to_blocked(), tree=tree, topo=topo,
         train_utts=train, dev_utts=dev, num_phones=num_phones,
         den_fsa=comp, train_ivectors=iv_train, dev_ivectors=iv_dev,
     )
@@ -175,6 +195,7 @@ def train_model(
     prefetch: int = 2,
     egs_path: Optional[str] = None,
     log_every: int = 0,
+    max_phones_per_chunk: int = 24,
     device=DEFAULT_DEVICE,
 ) -> Tuple[TrainState, MetricsLogger]:
     """The iteration loop (`train.py:473-570` equivalent).
@@ -191,7 +212,9 @@ def train_model(
     resumed from a checkpoint continues as the unbroken run would.  With
     ``ckpt_dir`` the state is saved every ``ckpt_interval`` steps (if >
     0) and after the last, the configs in the checkpoint's meta.
-    ``log_every`` prints step/objf/rate progress.
+    ``log_every`` prints step/objf/rate progress.  Chunks with more than
+    ``max_phones_per_chunk`` phones are dropped (``DataBundle.egs``; the
+    reference always takes its default, 24).
     """
     device = resolve_device(device)
     state = init_state
@@ -212,6 +235,7 @@ def train_model(
     else:
         chunks = bundle.egs(model_cfg if not supernet else None,
                             chunk_width=chunk_width, dev=dev,
+                            max_phones_per_chunk=max_phones_per_chunk,
                             supernet_cfg=model_cfg if supernet else None)
         if len(chunks) < batch_size:
             raise ValueError(
@@ -242,6 +266,200 @@ def train_model(
     if ckpt_dir:
         save_checkpoint(ckpt_dir, num_steps, state, meta)
     return state, metrics
+
+
+def _ivector_batch(model_cfg, ivectors, idx, device):
+    """[len(idx), D] i-vectors on ``device`` (zeros without ``ivectors``),
+    or None for a model that takes none."""
+    if not model_cfg.ivector_dim:
+        return None
+    if ivectors is None:
+        iv = np.zeros((len(idx), model_cfg.ivector_dim), np.float32)
+    else:
+        iv = np.stack([np.asarray(ivectors[i], np.float32) for i in idx])
+    return torch.from_numpy(iv).to(device)
+
+
+def decode_corpus(
+    bundle: DataBundle,
+    model_cfg,
+    state: TrainState,
+    utts=None,
+    chunk_output_frames: int = 0,
+    ivectors=None,
+    device=DEFAULT_DEVICE,
+) -> dict:
+    """Viterbi phone decode of whole utterances + PER vs the true phones.
+
+    Pads each utterance's features with the model context and decodes the
+    full output sequence against the bundle's dense denominator graph
+    (``bundle.den``), one utterance at a time: the forward and the Viterbi
+    run on ``device``.  ``ivectors``: per-utterance vectors for a model
+    that takes them (zeros if omitted; the reference passes none, so it
+    decodes only i-vector-free models).  ``chunk_output_frames`` is unused,
+    as in the reference.
+    """
+    dev = resolve_device(device)
+    utts = utts if utts is not None else bundle.dev_utts
+    params = convert.tree_to_device(state.params, dev)
+    bn_state = convert.tree_to_device(state.bn_state, dev)
+    left, right = model_context(model_cfg)
+    lt, spdf, li, lf = graph_log_arrays(bundle.den, dev)
+    refs, hyps = [], []
+    bucket = 32  # pad output lengths to multiples (the reference's shapes)
+    fs = model_cfg.frame_subsampling_factor
+    with torch.inference_mode():
+        for i, utt in enumerate(utts):
+            t_out = len(utt.pdf_align)
+            t_pad = ((t_out + bucket - 1) // bucket) * bucket
+            need = left + (t_pad - 1) * fs + 1 + right
+            feats = torch.from_numpy(
+                _pad_feats(utt.feats, left, need)[None, :need])
+            chain, _, _ = apply_model(
+                model_cfg, params, bn_state, feats.to(dev),
+                _ivector_batch(model_cfg, ivectors, [i], dev), train=False)
+            _, paths = viterbi_decode(chain[:, :t_out].float(), lt, spdf, li,
+                                      lf)
+            hyps.append(path_to_phones(paths[0].cpu().numpy(),
+                                       bundle.num_phones))
+            refs.append(list(utt.phones))
+    return score_corpus(refs, hyps)
+
+
+def forward_corpus(
+    bundle_or_cfg,
+    model_cfg,
+    state: TrainState,
+    utts,
+    bucket: int = 64,
+    batch_size: int = 16,
+    ivectors=None,
+    device=DEFAULT_DEVICE,
+):
+    """Batched acoustic forward of whole utterances on ``device``.
+
+    Utterances are bucketed by output length padded to a multiple of
+    ``bucket`` and stacked into [batch_size, T_in, F] batches: each
+    utterance edge-repeated by the model context and cut to the bucket's
+    input length, the tail group padded to ``batch_size`` by repeating
+    its first row, zero i-vectors when ``ivectors`` is None and the model
+    takes them (the reference's padding, which fixes its jit shapes).
+    ``apply_model(train=False)`` runs under ``torch.inference_mode()``;
+    ``state``'s params are copied to ``device`` if they live elsewhere.
+    Returns per-utterance float32 numpy [T_out, P] log-outputs (chain
+    head).  ``bundle_or_cfg`` is unused, as in the reference.
+    """
+    dev = resolve_device(device)
+    params = convert.tree_to_device(state.params, dev)
+    bn_state = convert.tree_to_device(state.bn_state, dev)
+    left, right = model_context(model_cfg)
+    fs = model_cfg.frame_subsampling_factor
+    buckets = {}
+    for i, utt in enumerate(utts):
+        t_out = len(utt.pdf_align) if utt.pdf_align is not None else (
+            utt.feats.shape[0] // fs)
+        t_pad = ((t_out + bucket - 1) // bucket) * bucket
+        buckets.setdefault(t_pad, []).append((i, utt, t_out))
+
+    outs = [None] * len(utts)
+    with torch.inference_mode():
+        for t_pad, items in sorted(buckets.items()):
+            need = left + (t_pad - 1) * fs + 1 + right
+            for j in range(0, len(items), batch_size):
+                group = items[j: j + batch_size]
+                n = len(group)
+                idx = [i for i, _, _ in group]
+                # pad the tail group by repeating its first row
+                idx += [idx[0]] * (batch_size - n)
+                feats = np.stack(
+                    [_pad_feats(u.feats, left, need)[:need]
+                     for _, u, _ in group]
+                    + [_pad_feats(group[0][1].feats, left, need)[:need]]
+                    * (batch_size - n))
+                chain, _, _ = apply_model(
+                    model_cfg, params, bn_state,
+                    torch.from_numpy(feats).to(dev),
+                    _ivector_batch(model_cfg, ivectors, idx, dev),
+                    train=False)
+                chain = chain.float().cpu().numpy()
+                for (i, _, t_out), row in zip(group, chain[:n]):
+                    outs[i] = row[:t_out]
+    return outs
+
+
+_DECODE_SHARED = None  # (graph, outs, kwargs) for forked decode workers
+
+
+def _decode_worker(i: int):
+    graph, outs, kw = _DECODE_SHARED
+    res = beam_decode_sparse(outs[i], graph, **kw)
+    return i, res.words, (res.lattice if kw["lattice"] else None)
+
+
+def decode_corpus_words(
+    bundle_or_cfg,
+    model_cfg,
+    state: TrainState,
+    graph,
+    utts,
+    acoustic_scale: float = 1.0,
+    beam: float = 14.0,
+    max_active: int = 7000,
+    lattice: bool = False,
+    lattice_beam: float = 7.0,
+    bucket: int = 64,
+    batch_size: int = 16,
+    num_workers: int = 0,
+    retry_beam: float = 0.0,
+    ivectors=None,
+    device=DEFAULT_DEVICE,
+) -> dict:
+    """Eval-set word decoding: batched forward on ``device`` + sparse beam
+    search + WER (the `steps/nnet3/decode.sh` + scoring equivalent over the
+    graph_sparse HCLG).  Returns {"wer", "sub", "ins", "del", "ref_len",
+    "hyps", "lattices"?}.
+
+    The search is the C++ decoder (``decode.beam.beam_decode_sparse``'s
+    default).  ``num_workers`` > 0 fans the per-utterance searches out
+    over forked host processes (Kaldi's decode.sh --nj split): the
+    decoder's library is loaded in the parent first, and the forward's
+    outputs are numpy arrays before the fork, so no child touches CUDA.
+    A died beam is re-decoded up to ``retry_beam`` (default 4x ``beam``).
+    """
+    outs = forward_corpus(bundle_or_cfg, model_cfg, state, utts,
+                          bucket=bucket, batch_size=batch_size,
+                          ivectors=ivectors, device=device)
+    kw = dict(acoustic_scale=acoustic_scale, beam=beam,
+              max_active=max_active, lattice=lattice,
+              lattice_beam=lattice_beam,
+              retry_beam=retry_beam if retry_beam else beam * 4.0)
+    if num_workers and len(outs) > 1:
+        import multiprocessing as mp
+
+        global _DECODE_SHARED
+        _native.get_decoder_lib()  # built and loaded before the fork
+        _DECODE_SHARED = (graph, outs, kw)
+        try:
+            with mp.get_context("fork").Pool(num_workers) as pool:
+                results = pool.map(_decode_worker, range(len(outs)),
+                                   chunksize=1)
+        finally:
+            _DECODE_SHARED = None
+        results.sort(key=lambda r: r[0])
+        hyps = [r[1] for r in results]
+        lats = [r[2] for r in results]
+    else:
+        hyps, lats = [], []
+        for obs in outs:
+            res = beam_decode_sparse(obs, graph, **kw)
+            hyps.append(res.words)
+            lats.append(res.lattice if lattice else None)
+    refs = [list(u.words) for u in utts]
+    rep = score_corpus(refs, hyps)
+    rep["hyps"] = hyps
+    if lattice:
+        rep["lattices"] = lats
+    return rep
 
 
 def run_offset_search_pipeline(

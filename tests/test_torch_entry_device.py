@@ -10,6 +10,7 @@ import torch
 
 from tdnnf_nas_torch import convert
 from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
+from tdnnf_nas_torch.decode import align, wfst
 from tdnnf_nas_torch.models import nas, tdnnf
 from tdnnf_nas_torch.recipes import chain_recipes
 from tdnnf_nas_torch.train import trainer
@@ -28,6 +29,13 @@ _ENTRY_POINTS = {
     "init_supernet": (nas.init_supernet, (None, None)),
     "tree_to_torch": (convert.tree_to_torch, ({},)),
     "batch_to_torch": (convert.batch_to_torch, ({},)),
+    "forward_corpus": (chain_recipes.forward_corpus, (None, None, None, [])),
+    "decode_corpus": (chain_recipes.decode_corpus, (None, None, None)),
+    "decode_corpus_words": (chain_recipes.decode_corpus_words,
+                            (None, None, None, None, [])),
+    "align_corpus": (align.align_corpus, (None, None, None, [])),
+    "align_utterance": (align.align_utterance, (None, [0], None, None, None)),
+    "decode_words": (wfst.decode_words, (None, None)),
 }
 
 
