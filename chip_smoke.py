@@ -9,15 +9,17 @@ chunks: against the production 4-gram x left-2 triphone blocked
 denominator (10,271 states, 6,034 pdfs, 18,751,248 params), and against
 the bigram x left-biphone dense denominator (2,208 states, 2,208 pdfs,
 16,784,684 params), then the two-stage DARTS search against the dense
-den.  Checks the hand-written CUDA kernels of each path against their
-plain PyTorch versions.  Phases, each raising on failure:
+den, then the decode path with i-vectors, RNNLM rescoring and LHUC
+speaker adaptation.  Checks the hand-written CUDA kernels of each path
+against their plain PyTorch versions.  Phases, each raising on failure:
 
   0. build both kernel libraries from ``tdnnf_nas_torch/csrc`` (one nvcc
      per source, started together, sm_90a);
   1. flagship host setup (the ``bench.py`` setup, through the port's own
      numpy host modules): 10,271 den states, 18,751,248 params;
   2. kernel vs plain at the flagship den shape, float32 and bf16 obs,
-     with each tolerance and its reason; kernel and plain timings, the
+     with each tolerance and its reason, two kernel runs equal bit for
+     bit (``_blocked_check``); kernel and plain timings, the
      scan's block products alone in cuBLAS (``library_ms``), the bound
      and the device launches of one scan (profiler);
   3. training: launch counters reset, then 8 bf16 steps with
@@ -65,8 +67,13 @@ plain PyTorch versions.  Phases, each raising on failure:
   8. the decode path at the flagship's width (``_decode_phase``): the
      smoke word corpus of ``scripts/e2e_flagship.py:70-84`` (46 phones,
      vocab 2,500, 4,000 LM text sentences, lookahead lags, 8 topics) at
-     800 utterances, 40 held out, with phase 1's 6,034-pdf left-2 tree
-     and seeded per-speaker i-vectors; its 4-gram blocked den; 200 bf16
+     800 utterances, 40 held out, with phase 1's 6,034-pdf left-2 tree;
+     i-vectors extracted by the port on the card (``_ivector_stage``,
+     ``e2e_flagship.py:172-192`` at its full sizes: a 64-Gaussian UBM,
+     6 EM iterations, on every second frame of 150 training utterances;
+     a 100-dim T-matrix, 4 iterations, on 600; extraction for all 800;
+     within- and between-speaker cosine; each stage's seconds; each
+     stage against the CPU on the same inputs); its 4-gram blocked den; 200 bf16
      ``train_model`` steps of the flagship 7q at B = 64 with launch
      counters reset (objf finite, each blocked kernel launched once per
      step); the trigram HCLG (``split_unigram=False``) and the 4-gram of
@@ -77,12 +84,31 @@ plain PyTorch versions.  Phases, each raising on failure:
      against the numpy one on 3 utterances (words, scores within 1e-3),
      4-gram lattice rescoring (WER) and the lattice oracle; forced
      alignment and the den Viterbi of ``decode_corpus`` on phase 5's
-     biphone bundle, each on the card against the CPU.
+     biphone bundle, each on the card against the CPU;
+  9. (``_adapt_rescore_phase``, on phase 8's model, HCLG, trigram and
+     lattices) the RNNLM of ``e2e_flagship.py:341-382`` at the reference
+     rescorer's width (embed 1024, cell 2048, rpd 512, TDNN splice),
+     500 Adam steps at batch 64 on the LM text and training transcripts
+     (the reference runs 4,000): ms/step, held-out perplexity on the
+     test transcripts, its log-probs on the card against the CPU (1e-4);
+     20-best lists rescored in batches (interpolation 0.5: WER); every
+     lattice rescored frontier-batched (WER, s/lattice, device calls),
+     and the 3 shortest also by the incremental rescorer (same words,
+     scores within 1e-4); then LHUC (``tools/e2e_flagship``, stage 7):
+     the blocked pair against its plain version at B = 16 on phase 8's
+     den, with phase 2's checks, times and bounds; launch counters
+     reset, 24 SGD steps a test speaker at B = 16 and the adapted decode
+     (WER before and after, ms/step, objf finite at every step, each
+     blocked kernel once a step, each speaker's largest adapted logit
+     non-zero); one float32 LHUC step on the card against the CPU's
+     through the plain den.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
-three TF32 tensor-core passes ``bound_ms_3xtf32`` and
-``launches_per_scan``), and as its last line
+three TF32 tensor-core passes ``bound_ms_3xtf32``,
+``launches_per_scan`` and, for the blocked pair, each of phase 2's
+fields again at LHUC's batch with the suffix ``_b16``), and as its last
+line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
 
@@ -183,6 +209,100 @@ def _library_ms(torch, mm, t: int) -> float:
     of mm(), timed over the whole loop (the yardstick; the port never
     calls it)."""
     return _cuda_ms(torch, lambda: [mm() for _ in range(t - 1)])
+
+
+def _blocked_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int):
+    """The blocked pair against its plain version on den ``g`` at
+    ``batch_size`` x 50 frames, float32 and bf16 obs: finite outputs, two
+    kernel runs equal bit for bit, logZ and the obs gradient within their
+    bars; then, with bf16 obs (the main path's setting), kernel and plain
+    times, the scan's block products alone in cuBLAS (``library_ms``),
+    both bounds and the device launches of one scan (profiler).
+    Returns {"fwd", "bwd"}: that kernel's fields of the ``kernels`` line.
+
+    Tolerances: the kernels sum in another order than the plain path's
+    cuBLAS products and torch reductions (no atomics: two kernel runs
+    agree bit for bit).  logZ sums 50 per-frame log-scales of ~1e-6
+    relative error each: |dlogZ| <= 1e-3.  The obs gradient is held
+    relative to its largest entry: 1e-3 in float32; with bf16 obs it is
+    written in bf16, whose rounding step is 2^-8 relative: 1e-2."""
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.ops.fwdbwd import _MIN_LOG_OBS
+
+    t, leaky = 50, 0.1
+    c, nsrc, ndp = g.w_blocks.shape
+    rng = np.random.RandomState(0)
+    logits = torch.tensor(rng.randn(batch_size, t, num_pdfs)
+                          .astype(np.float32) * 2.0, device=dev)
+    gbar = torch.tensor(rng.rand(batch_size).astype(np.float32) + 0.5,
+                        device=dev)
+    obs = torch.exp(torch.clamp(logits - logits.amax(-1, keepdim=True),
+                                min=_MIN_LOG_OBS))
+    out = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
+    for obs_dtype, grad_rtol in ((torch.float32, 1e-3),
+                                 (torch.bfloat16, 1e-2)):
+        obs_v = obs.to(obs_dtype).index_select(-1, g.pdf_virtual).contiguous()
+        z_k, al_k, cs_k = bdc.blocked_den_fwd_cuda(obs_v, g, leaky)
+        gr_k = bdc.blocked_den_bwd_cuda(obs_v, g, al_k, cs_k, gbar)
+        z_k2, al_k2, cs_k2 = bdc.blocked_den_fwd_cuda(obs_v, g, leaky)
+        gr_k2 = bdc.blocked_den_bwd_cuda(obs_v, g, al_k2, cs_k2, gbar)
+        z_p, al_p, cs_p = bdc.blocked_scan_fwd_plain(obs_v, g, leaky)
+        gr_p = bdc.blocked_scan_bwd_plain(obs_v, g, al_p, cs_p, gbar)
+        torch.cuda.synchronize()
+        name = f"{str(obs_dtype).replace('torch.', '')} B={batch_size}"
+        _check(bool(torch.isfinite(z_k).all() and torch.isfinite(
+            gr_k.float()).all()), f"finite kernel outputs ({name})")
+        _check(bool(torch.equal(z_k, z_k2) and torch.equal(gr_k, gr_k2)),
+               f"kernel runs repeat bit for bit ({name})")
+        ez = float((z_k - z_p).abs().max())
+        eg = float((gr_k.float() - gr_p.float()).abs().max())
+        gmax = float(gr_p.float().abs().max())
+        ea = float((al_k - al_p).abs().max())
+        print(f"[kernel-vs-plain {name}] S={g.num_states}: logZ "
+              f"max|err|={ez:.3e} (tol 1e-3, |logZ|~"
+              f"{float(z_p.abs().mean()):.1f}); alphas max|err|={ea:.3e}; "
+              f"grad max|err|={eg:.3e} (tol {grad_rtol:g} x max|grad|="
+              f"{gmax:.3e})", flush=True)
+        _check(ez <= 1e-3, f"logZ within 1e-3 ({name})")
+        _check(eg <= grad_rtol * max(gmax, 1.0), f"grad within tol ({name})")
+        for k, e in (("fwd", ez), ("bwd", eg)):
+            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
+        del al_k2, gr_k2
+    # bf16 obs, the main path's setting, from here on
+    run = {"fwd": lambda: bdc.blocked_den_fwd_cuda(obs_v, g, leaky),
+           "bwd": lambda: bdc.blocked_den_bwd_cuda(obs_v, g, al_k, cs_k,
+                                                   gbar)}
+    plain = {"fwd": lambda: bdc.blocked_scan_fwd_plain(obs_v, g, leaky),
+             "bwd": lambda: bdc.blocked_scan_bwd_plain(obs_v, g, al_p, cs_p,
+                                                       gbar)}
+    # yardstick: the scan's block products alone in cuBLAS (float32, TF32
+    # off); bound: 2*B*C*NSRC*NDP flops a product frame against obs,
+    # alphas (and grad) and W moved once
+    x = torch.rand(c, batch_size, ndp, device=dev)
+    y = torch.empty(c, batch_size, ndp, device=dev)
+    xs = x[:, :, :nsrc].contiguous()
+    ys = torch.empty_like(xs)
+    mm = {"fwd": lambda: torch.bmm(xs, g.w_blocks, out=y),
+          "bwd": lambda: torch.bmm(x, g.w_blocks.transpose(1, 2), out=ys)}
+    flops = 2.0 * batch_size * c * nsrc * ndp * (t - 1)
+    n_obs = batch_size * t * c * ndp
+    moved = {"fwd": 6.0 * n_obs, "bwd": 8.0 * n_obs}
+    for k, o in out.items():
+        nbytes = moved[k] + 4.0 * c * nsrc * ndp
+        o["ms"] = _cuda_ms(torch, run[k])
+        o["plain_ms"] = _cuda_ms(torch, plain[k])
+        o["bound_ms"], o["bound_by"] = _bound(flops, nbytes)
+        o["bound_ms_3xtf32"] = _bound_3xtf32(flops, nbytes)
+        o["library_ms"] = _library_ms(torch, mm[k], t)
+        o["launches_per_scan"] = _device_launches(torch, run[k])
+        print(f"[den {k}, bf16 obs, B={batch_size} T={t} V={c * ndp}] "
+              f"kernel {o['ms']:.3f} ms vs plain {o['plain_ms']:.3f} ms; "
+              f"cuBLAS products alone {o['library_ms']:.3f} ms; bound "
+              f"{o['bound_ms']:.3f} ms ({o['bound_by']}, {flops / 1e9:.1f} "
+              f"GFLOP), 3xTF32 bound {o['bound_ms_3xtf32']:.3f} ms; device "
+              f"launches per scan {o['launches_per_scan']} ({gpu})",
+              flush=True)
+    return out
 
 
 def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
@@ -970,7 +1090,86 @@ def _rel_ok(a, b, rtol: float, atol: float = 0.0) -> bool:
 # (vocab 2,500, 4,000 LM text sentences) at 800 utterances, 40 held out.
 DECODE_SIZES = dict(num_utts=800, vocab_size=2500, num_text_sents=4000,
                     n_test=40, train_steps=200, n_check=4, n_numpy=3,
-                    n_oracle=10, max_active=10000)
+                    n_oracle=10, max_active=10000, ubm_utts=150,
+                    tmat_utts=600, rnnlm_steps=500, nbest=20,
+                    n_incremental=3)
+
+
+def _ivector_stage(torch, dev, gpu, utts, train):
+    """Phase 8's i-vectors (``scripts/e2e_flagship.py:172-192`` at its
+    full sizes): a 64-Gaussian UBM (6 EM iterations) on every second
+    frame of 150 training utterances, a 100-dim T-matrix (4 iterations)
+    on 600, extraction for all utterances, on the card; each stage
+    repeated on the CPU from the card's inputs and held to it.  Returns
+    the card's [U, 100] i-vectors."""
+    from tdnnf_nas_torch.data.ivector import (IvectorConfig, UbmConfig,
+                                              extract_ivectors,
+                                              train_ivector_extractor,
+                                              train_ubm)
+
+    sz = DECODE_SIZES
+    pool = np.concatenate([u.feats for u in train[:sz["ubm_utts"]]])[::2]
+    t_feats = [u.feats for u in train[:sz["tmat_utts"]]]
+    all_feats = [u.feats for u in utts]
+    ucfg = UbmConfig(num_gauss=64, em_iters=6)
+    icfg = IvectorConfig(dim=100, em_iters=4)
+    secs, card, cpu = {}, {}, {}
+    for d, out in ((dev, card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        out["ubm"] = train_ubm(pool, ucfg, device=d)
+        secs[d, "ubm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # each stage from the card's inputs, so that the CPU repeats it
+        out["t"] = train_ivector_extractor(t_feats, card["ubm"], icfg,
+                                           device=d)
+        secs[d, "t"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["iv"] = extract_ivectors(all_feats, card["ubm"], card["t"],
+                                     device=d)
+        secs[d, "iv"] = time.perf_counter() - t0
+    ivecs = card["iv"]
+    spk = np.asarray([u.speaker for u in utts])
+    ivn = ivecs / np.linalg.norm(ivecs, axis=1, keepdims=True)
+    cos = ivn @ ivn.T
+    same = spk[:, None] == spk[None, :]
+    off = ~np.eye(len(utts), dtype=bool)
+    within, between = float(cos[same & off].mean()), float(cos[~same].mean())
+    print(f"[ivector] UBM 64 x 6 EM on {len(pool)} frames "
+          f"{secs[dev, 'ubm']:.2f} s, T-matrix 100-dim x 4 EM on "
+          f"{len(t_feats)} utts {secs[dev, 't']:.2f} s, extraction of "
+          f"{len(utts)} utts {secs[dev, 'iv']:.2f} s on the card (CPU "
+          f"{secs['cpu', 'ubm']:.2f} / {secs['cpu', 't']:.2f} / "
+          f"{secs['cpu', 'iv']:.2f} s); within-speaker cosine {within:.3f} "
+          f"vs between {between:.3f} ({gpu})", flush=True)
+    # Card against CPU, TF32 off, each stage from the same inputs.  The
+    # posteriors sum ~50k frames and the E-step inverts [100, 100]
+    # precisions in float32 in another order on each device: the UBM is
+    # held at rtol 1e-3, T at 1e-3 of its largest entry, each i-vector at
+    # cosine >= 0.9999 and 1e-3 of its norm.
+    ubm_err = "/".join(
+        f"{float(np.abs(card['ubm'][k] - cpu['ubm'][k]).max()):.2e}"
+        for k in ("means", "vars", "weights"))
+    ubm_ok = all(_rel_ok(card["ubm"][k], cpu["ubm"][k], 1e-3, 1e-5)
+                 for k in ("means", "vars", "weights"))
+    t_err = float(np.abs(card["t"] - cpu["t"]).max()
+                  / np.abs(cpu["t"]).max())
+    a, b = card["iv"], cpu["iv"]
+    iv_cos = float(np.min(np.sum(a * b, 1) / (np.linalg.norm(a, axis=1)
+                                               * np.linalg.norm(b, axis=1))))
+    iv_err = float(np.max(np.linalg.norm(a - b, axis=1)
+                          / np.linalg.norm(b, axis=1)))
+    print(f"[ivector check] card vs CPU: UBM max|err| means/vars/weights "
+          f"{ubm_err} "
+          f"(tol rtol 1e-3 + atol 1e-5); T max err {t_err:.2e} of max|T| "
+          f"(tol 1e-3); i-vectors min cosine {iv_cos:.7f} (tol 0.9999), max "
+          f"rel err {iv_err:.2e} (tol 1e-3)", flush=True)
+    _check(ubm_ok, "UBM on the card equals the CPU's")
+    _check(t_err <= 1e-3, "T-matrix on the card equals the CPU's")
+    _check(iv_cos >= 0.9999 and iv_err <= 1e-3,
+           "i-vectors on the card equal the CPU's")
+    _check(np.isfinite(ivecs).all() and ivecs.shape == (len(utts), 100),
+           "finite [U, 100] i-vectors")
+    return ivecs
 
 
 def _decode_phase(torch, dev, gpu, tree, topo, dense_bundle):
@@ -1024,12 +1223,7 @@ def _decode_phase(torch, dev, gpu, tree, topo, dense_bundle):
     n_test = sz["n_test"]
     test, train = utts[:n_test], utts[n_test:]
     t_corpus = time.perf_counter() - t0
-    # i-vector extraction is not ported: seeded per-speaker vectors of dim
-    # 100 with small per-utterance noise stand in for them
-    iv_rng = np.random.RandomState(11)
-    spk_iv = iv_rng.randn(cfg.num_speakers, 100).astype(np.float32)
-    ivecs = [spk_iv[u.speaker] + 0.1 * iv_rng.randn(100).astype(np.float32)
-             for u in utts]
+    ivecs = list(_ivector_stage(torch, dev, gpu, utts, train))
     iv_test, iv_train = ivecs[:n_test], ivecs[n_test:]
     t0 = time.perf_counter()
     bundle = prepare_data(train, [u.phones for u in train], tree, topo,
@@ -1247,7 +1441,202 @@ def _decode_phase(torch, dev, gpu, tree, topo, dense_bundle):
     print(f"[decode phase] {time.perf_counter() - t_phase:.1f} s in all, "
           f"{time.perf_counter() - t_phase - t_den:.1f} s without the den "
           f"compile", flush=True)
-    return launches
+    ctx = dict(mc=mc, tc=tc, state=state, bundle=bundle, g=g, lm3=lm3,
+               word_sym=word_sym, rep=rep, test=test, refs=refs,
+               iv_test=iv_test, lm_text=text + word_seqs[n_test:], tree=tree,
+               topo=topo)
+    return launches, ctx
+
+
+def _adapt_rescore_phase(torch, dev, gpu, ctx):
+    """Phase 9 on phase 8's model, HCLG, trigram and lattices: the RNNLM
+    of ``scripts/e2e_flagship.py:341-382`` at the reference rescorer's
+    width (embed 1024, cell 2048, rpd 512, TDNN splice; batch 64 on the
+    LM text and the training transcripts; DECODE_SIZES' steps, not
+    4,000), its log-probs on the card against the CPU, batched n-best
+    rescoring (n = 20, interpolation 0.5), frontier-batched lattice
+    rescoring of every lattice and the incremental rescorer on the
+    shortest, then LHUC (``tools/e2e_flagship.lhuc_adapt_and_decode``,
+    stage 7) for the test speakers: the blocked pair against its plain
+    version at B = 16, each kernel once per LHUC step, WER before and
+    after, and one float32 step on the card against the CPU's through
+    the plain den.  Returns (blocked launches, B = 16 errors, times)."""
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.decode.lattice import (lattice_nbest,
+                                                rescore_lattice_rnnlm,
+                                                rescore_lattices_rnnlm)
+    from tdnnf_nas_torch.decode.rescore import rescore_nbest_rnnlm_batched
+    from tdnnf_nas_torch.decode.scoring import score_corpus
+    from tdnnf_nas_torch.lm.rnnlm import (RnnLMConfig, RnnLMScorer,
+                                          _pad_batch, train_rnnlm)
+    from tdnnf_nas_torch.models import count_params
+    from tdnnf_nas_torch.models.lhuc import _lhuc_step, init_lhuc
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
+    from tdnnf_nas_torch.tools.e2e_flagship import (LHUC_BATCH,
+                                                    lhuc_adapt_and_decode,
+                                                    lhuc_batches)
+    from tdnnf_nas_torch.data.egs import EgsConfig, make_egs
+    from tdnnf_nas_torch.models.tdnnf import model_context
+    from tdnnf_nas_torch.train import ChainObjectiveConfig
+
+    sz = DECODE_SIZES
+    t_phase = time.perf_counter()
+    test, refs, rep = ctx["test"], ctx["refs"], ctx["rep"]
+    wtt = lambda w: ctx["word_sym"][w]
+
+    # ---- 9.1 the RNNLM at the reference rescorer's width ----
+    rl_cfg = RnnLMConfig(vocab_size=sz["vocab_size"], embed_dim=1024,
+                         hidden_dim=2048, proj_dim=512, tdnn_splice=True)
+    steps = sz["rnnlm_steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, last_ppl = train_rnnlm(ctx["lm_text"], rl_cfg, num_steps=steps,
+                                   batch_size=64, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_rnn = time.perf_counter() - t0
+    scorer = RnnLMScorer(rl_cfg, params)
+    inp, tgt = _pad_batch(refs, rl_cfg)
+    lp = scorer.token_logprobs(inp, tgt)
+    held_ppl = float(torch.exp(-lp.sum() / float((tgt >= 0).sum())))
+    n_params = count_params(params)
+    print(f"[rnnlm] {n_params:,} params (embed 1024, cell 2048, rpd 512, "
+          f"splice), {steps} Adam steps at batch 64 on "
+          f"{len(ctx['lm_text'])} sentences in {t_rnn:.1f} s = "
+          f"{t_rnn / steps * 1e3:.1f} ms/step (first step's set-up "
+          f"included); last batch ppl {last_ppl:.1f}, held-out (the "
+          f"{len(refs)} test transcripts) ppl {held_ppl:.1f} ({gpu})",
+          flush=True)
+    _check(np.isfinite(held_ppl), "finite held-out perplexity")
+    # float32 on the card (TF32 off) against the CPU, same weights
+    cpu_scorer = RnnLMScorer(rl_cfg, convert.tree_to_device(params, "cpu"))
+    err = float((lp.cpu() - cpu_scorer.token_logprobs(inp, tgt)).abs().max())
+    print(f"[rnnlm check] token_logprobs card vs CPU on the {len(refs)} "
+          f"test transcripts: max|err| {err:.2e} (tol 1e-4)", flush=True)
+    _check(err <= 1e-4, "RNNLM log-probs on the card equal the CPU's")
+
+    # ---- 9.2 batched n-best rescoring (e2e_flagship.py:369-375) ----
+    t0 = time.perf_counter()
+    nbests = [lattice_nbest(lat, n=sz["nbest"]) for lat in rep["lattices"]]
+    t_nb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bests = rescore_nbest_rnnlm_batched(nbests, ctx["lm3"], scorer,
+                                        lm_scale=1.0, interp_weight=0.5,
+                                        word_to_token=wtt)
+    t_resc = time.perf_counter() - t0
+    wer_nb = score_corpus(refs, [b[0] for b in bests])["wer"]
+    print(f"[rnnlm n-best] {sum(map(len, nbests))} hypotheses "
+          f"({sz['nbest']}-best lists in {t_nb:.1f} s) rescored in "
+          f"{t_resc:.2f} s, interpolation 0.5: WER {wer_nb:.2f}% "
+          f"(first pass {rep['wer']:.2f}%)", flush=True)
+    _check(wer_nb < 100.0, "n-best RNNLM WER below 100%")
+
+    # ---- 9.3 frontier-batched lattice rescoring ----
+    kw = dict(lm_scale=1.0, word_to_token=wtt, interp_weight=0.5)
+    lats = rep["lattices"]
+    with mock.patch.object(scorer, "advance_batch",
+                           wraps=scorer.advance_batch) as adv:
+        t0 = time.perf_counter()
+        lat_best = rescore_lattices_rnnlm(lats, ctx["lm3"], scorer, **kw)
+        t_lat = time.perf_counter() - t0
+        levels = adv.call_count
+    wer_lat = score_corpus(refs, [b[0][0] if b else [] for b in lat_best])
+    print(f"[rnnlm lattices] {len(lats)} lattices ("
+          f"{sum(l.num_arcs for l in lats)} arcs) in {t_lat:.1f} s = "
+          f"{t_lat / len(lats):.3f} s/lattice, {levels} device calls "
+          f"(levels); WER {wer_lat['wer']:.2f}% ({gpu})", flush=True)
+    _check(wer_lat["wer"] < 100.0, "lattice RNNLM WER below 100%")
+    short = sorted(range(len(lats)), key=lambda i: lats[i].num_arcs)[
+        :sz["n_incremental"]]
+    t0 = time.perf_counter()
+    batched = rescore_lattices_rnnlm([lats[i] for i in short], ctx["lm3"],
+                                     scorer, **kw)
+    for i, b in zip(short, batched):
+        inc = rescore_lattice_rnnlm(lats[i], ctx["lm3"], scorer, **kw)
+        same = [w for w, _ in inc] == [w for w, _ in b]
+        d = abs(inc[0][1] - b[0][1])
+        print(f"[rnnlm batched vs incremental] lattice {i} "
+              f"({lats[i].num_arcs} arcs): words equal {same}, score "
+              f"|d| {d:.2e} (tol 1e-4)", flush=True)
+        _check(same and d <= 1e-4, "batched rescorer equals incremental")
+    print(f"[rnnlm incremental] {len(short)} lattices in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del scorer, cpu_scorer, params
+
+    # ---- 9.4 LHUC: the blocked pair at B = 16, enrollment, decode ----
+    mc, state, bundle = ctx["mc"], ctx["state"], ctx["bundle"]
+    den = den_on_device(bundle, dev)
+    b16 = _blocked_check(torch, dev, gpu, den, mc.num_pdfs, LHUC_BATCH)
+    objf, stamps = [], []
+
+    def on_step(m):
+        objf.append(float(m["objf_mmi"]))  # syncs: a step per stamp
+        stamps.append(time.perf_counter())
+
+    bdc.blocked_den_fwd_cuda.launches = 0
+    bdc.blocked_den_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = lhuc_adapt_and_decode(
+        bundle, ctx["topo"], ctx["tree"], ctx["g"], test, refs,
+        ctx["iv_test"], ctx["tc"].objective, mc, state, True, rep["hyps"],
+        on_step=on_step, device=dev)
+    t_lhuc = time.perf_counter() - t0
+    launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
+                "bwd": bdc.blocked_den_bwd_cuda.launches}
+    # step times: gaps between consecutive steps of one speaker (24 each)
+    gaps = [b - a for k, (a, b) in enumerate(zip(stamps, stamps[1:]))
+            if (k + 1) % 24]
+    print(f"[lhuc] {res['speakers']} speakers, {res['utts']} test utts, "
+          f"{len(objf)} steps (24 a speaker, B=16, lr 0.2, bf16, "
+          f"den_obs_bf16) in {t_lhuc:.1f} s with egs and decode; "
+          f"{np.median(gaps) * 1e3:.1f} ms/step (median, "
+          f"{min(gaps) * 1e3:.1f}-{max(gaps) * 1e3:.1f}); objf_mmi first "
+          f"{objf[0]:.4f}, last {objf[-1]:.4f}; WER {res['wer_before']:.2f}% "
+          f"-> {res['wer_after']:.2f}% on the same utterances; launches "
+          f"fwd={launches['fwd']} bwd={launches['bwd']} ({gpu})", flush=True)
+    _check(len(objf) == 24 * res["speakers"] and all(np.isfinite(objf)),
+           "objf_mmi finite at every LHUC step")
+    _check(launches["fwd"] == launches["bwd"] == len(objf),
+           "each blocked kernel launched once per LHUC step")
+    # 2*sigmoid(a) ~ 1 + a/2: a logit a moves its scale by about a/2
+    top = res["max_abs_logit"]
+    print(f"[lhuc logits] largest |logit| after 24 steps, per speaker: "
+          f"min {min(top):.3e}, median {np.median(top):.3e}, max "
+          f"{max(top):.3e}; the scales 2*sigmoid(a) move by at most "
+          f"{max(top) / 2:.3e}", flush=True)
+    _check(len(top) == res["speakers"] and min(top) > 0.0,
+           "LHUC moved every speaker's logits off zero")
+
+    # one float32 step on the card (kernels) against the CPU (plain den)
+    mc32 = mc.replace(compute_dtype="float32")
+    left, right = model_context(mc32)
+    spk = test[0].speaker
+    idx = [i for i, u in enumerate(bundle.train_utts) if u.speaker == spk]
+    chunks = make_egs([bundle.train_utts[i] for i in idx[:10]], bundle.lm,
+                      ctx["topo"], ctx["tree"],
+                      EgsConfig(chunk_width=50, left_context=left,
+                                right_context=right, max_phones_per_chunk=40),
+                      den_fsa=bundle.den_fsa,
+                      ivectors=[bundle.train_ivectors[i] for i in idx[:10]])
+    host = lhuc_batches(chunks)[0]
+    obj32 = ChainObjectiveConfig()
+    new = {}
+    for d in (dev, "cpu"):
+        new[d], _ = _lhuc_step(
+            mc32, obj32, 0.2, 0.0, convert.tree_to_device(state.params, d),
+            convert.tree_to_device(state.bn_state, d), den_on_device(bundle, d),
+            init_lhuc(mc32, d), convert.batch_to_torch(host, d))
+    a = convert.lhuc_to_numpy(new[dev])
+    b = convert.lhuc_to_numpy(new["cpu"])
+    err = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+    top = max(float(np.abs(b[k]).max()) for k in b)
+    print(f"[lhuc f32 step] card (kernels) vs CPU (plain den), B=16: logits "
+          f"max|err| {err:.2e} of max|logit| {top:.2e} (tol 1e-3 x max, the "
+          f"den gradient's own bar)", flush=True)
+    _check(top > 0 and err <= 1e-3 * top, "f32 LHUC step card equals CPU")
+    print(f"[adapt-rescore phase] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, b16
 
 
 def main() -> int:
@@ -1266,7 +1655,7 @@ def main() -> int:
     from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
     from tdnnf_nas_torch.ops import cuda_build
     from tdnnf_nas_torch.ops import dense_den_cuda as ddc
-    from tdnnf_nas_torch.ops.fwdbwd import _MIN_LOG_OBS, BlockedDenGraph
+    from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
     from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
     from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
                                        TrainerConfig, init_train_state,
@@ -1329,95 +1718,7 @@ def main() -> int:
     batches = [convert.batch_to_torch(b, dev) for b in host_batches]
 
     # ---- 2. kernel vs plain at the flagship den shape ----
-    # Tolerances: the kernels sum in another order than the plain path's
-    # cuBLAS products and torch reductions (no atomics: two kernel runs
-    # agree bit for bit).  logZ sums 50 per-frame log-scales of ~1e-6
-    # relative error each: |dlogZ| <= 1e-3.  The obs gradient is held
-    # relative to its largest entry: 1e-3 in float32; with bf16 obs it is
-    # written in bf16, whose rounding step is 2^-8 relative: 1e-2.
-    rng = np.random.RandomState(0)
-    logits = torch.tensor(rng.randn(batch_size, chunk_width, tree.num_pdfs)
-                          .astype(np.float32) * 2.0, device=dev)
-    gbar = torch.tensor(rng.rand(batch_size).astype(np.float32) + 0.5,
-                        device=dev)
-    leaky = 0.1
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    times = {}
-    for obs_dtype, grad_rtol in ((torch.float32, 1e-3),
-                                 (torch.bfloat16, 1e-2)):
-        mx = logits.amax(-1, keepdim=True)
-        obs = torch.exp(torch.clamp(logits - mx, min=_MIN_LOG_OBS))
-        obs_v = obs.to(obs_dtype).index_select(-1, g.pdf_virtual).contiguous()
-        z_k, al_k, cs_k = bdc.blocked_den_fwd_cuda(obs_v, g, leaky)
-        gr_k = bdc.blocked_den_bwd_cuda(obs_v, g, al_k, cs_k, gbar)
-        z_k2, al_k2, cs_k2 = bdc.blocked_den_fwd_cuda(obs_v, g, leaky)
-        gr_k2 = bdc.blocked_den_bwd_cuda(obs_v, g, al_k2, cs_k2, gbar)
-        z_p, al_p, cs_p = bdc.blocked_scan_fwd_plain(obs_v, g, leaky)
-        gr_p = bdc.blocked_scan_bwd_plain(obs_v, g, al_p, cs_p, gbar)
-        torch.cuda.synchronize()
-        _check(bool(torch.isfinite(z_k).all() and torch.isfinite(
-            gr_k.float()).all()), "finite kernel outputs")
-        _check(bool(torch.equal(z_k, z_k2) and torch.equal(gr_k, gr_k2)),
-               "kernel runs repeat bit for bit")
-        ez = float((z_k - z_p).abs().max())
-        eg = float((gr_k.float() - gr_p.float()).abs().max())
-        gmax = float(gr_p.float().abs().max())
-        ea = float((al_k - al_p).abs().max())
-        name = str(obs_dtype).replace("torch.", "")
-        print(f"[kernel-vs-plain {name}] logZ max|err|={ez:.3e} (tol 1e-3, "
-              f"|logZ|~{float(z_p.abs().mean()):.1f}); alphas "
-              f"max|err|={ea:.3e}; grad max|err|={eg:.3e} (tol "
-              f"{grad_rtol:g} x max|grad|={gmax:.3e})", flush=True)
-        _check(ez <= 1e-3, f"logZ within 1e-3 ({name})")
-        _check(eg <= grad_rtol * max(gmax, 1.0), f"grad within tol ({name})")
-        errs["fwd"] = max(errs["fwd"], ez)
-        errs["bwd"] = max(errs["bwd"], eg)
-        if obs_dtype == torch.bfloat16:  # the main path's setting
-            times["fwd"] = _cuda_ms(
-                torch, lambda: bdc.blocked_den_fwd_cuda(obs_v, g, leaky))
-            times["fwd_plain"] = _cuda_ms(
-                torch, lambda: bdc.blocked_scan_fwd_plain(obs_v, g, leaky))
-            times["bwd"] = _cuda_ms(torch, lambda: bdc.blocked_den_bwd_cuda(
-                obs_v, g, al_k, cs_k, gbar))
-            times["bwd_plain"] = _cuda_ms(
-                torch, lambda: bdc.blocked_scan_bwd_plain(
-                    obs_v, g, al_p, cs_p, gbar))
-            # yardstick: the scan's block products alone in cuBLAS
-            # (float32, TF32 off); bound: 2*B*C*NSRC*NDP flops a product
-            # frame against obs, alphas (and grad) and W moved once
-            x = torch.rand(c, batch_size, ndp, device=dev)
-            y = torch.empty(c, batch_size, ndp, device=dev)
-            xs = x[:, :, :nsrc].contiguous()
-            ys = torch.empty_like(xs)
-            lib = {"fwd": _library_ms(torch, lambda: torch.bmm(
-                       xs, g.w_blocks, out=y), chunk_width),
-                   "bwd": _library_ms(torch, lambda: torch.bmm(
-                       x, g.w_blocks.transpose(1, 2), out=ys), chunk_width)}
-            flops = 2.0 * batch_size * c * nsrc * ndp * (chunk_width - 1)
-            n_obs = batch_size * chunk_width * c * ndp
-            w_bytes = 4.0 * c * nsrc * ndp
-            moved = {"fwd": 6.0 * n_obs + w_bytes,
-                     "bwd": 8.0 * n_obs + w_bytes}
-            bound = {k: _bound(flops, v) for k, v in moved.items()}
-            bound_tc = {k: _bound_3xtf32(flops, v) for k, v in moved.items()}
-            per_scan = {
-                "fwd": _device_launches(
-                    torch, lambda: bdc.blocked_den_fwd_cuda(obs_v, g, leaky)),
-                "bwd": _device_launches(
-                    torch, lambda: bdc.blocked_den_bwd_cuda(
-                        obs_v, g, al_k, cs_k, gbar)),
-            }
-            del x, y, xs, ys
-        del al_k, al_k2, al_p, gr_k, gr_k2, gr_p
-    print(f"[den timing, bf16 obs, B={batch_size} T={chunk_width} "
-          f"V={c * ndp}] fwd kernel {times['fwd']:.3f} ms vs plain "
-          f"{times['fwd_plain']:.3f} ms; bwd kernel {times['bwd']:.3f} ms vs "
-          f"plain {times['bwd_plain']:.3f} ms ({gpu})", flush=True)
-    for k in ("fwd", "bwd"):
-        print(f"[den {k}] kernel {times[k]:.3f} ms; cuBLAS products alone "
-              f"{lib[k]:.3f} ms; bound {bound[k][0]:.3f} ms ({bound[k][1]}), "
-              f"3xTF32 bound {bound_tc[k]:.3f} ms; device launches per scan "
-              f"{per_scan[k]} ({gpu})", flush=True)
+    blk = _blocked_check(torch, dev, gpu, g, tree.num_pdfs, batch_size)
 
     # ---- 3. training: the main path ----
     trainer_cfg = TrainerConfig(
@@ -1529,31 +1830,27 @@ def main() -> int:
     del g, chunks, resident
 
     # ---- 8. the decode path at the flagship's width ----
-    decode_launches = _decode_phase(torch, dev, gpu, tree, topo,
-                                    dense_bundle)
+    decode_launches, ctx = _decode_phase(torch, dev, gpu, tree, topo,
+                                         dense_bundle)
+    # ---- 9. RNNLM rescoring and LHUC on phase 8's model and lattices ----
+    lhuc_launches, b16 = _adapt_rescore_phase(torch, dev, gpu, ctx)
+    del ctx
     for k in ("fwd", "bwd"):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
               f"loader-fed phase {loader_launches[k]}, decode-phase "
-              f"training {decode_launches[k]}", flush=True)
-        launches[k] += loader_launches[k] + decode_launches[k]
+              f"training {decode_launches[k]}, LHUC steps "
+              f"{lhuc_launches[k]}", flush=True)
+        launches[k] += (loader_launches[k] + decode_launches[k]
+                        + lhuc_launches[k])
 
     kernels = [
-        {"name": "blocked_den_fwd", "route": "cuda",
+        {"name": f"blocked_den_{k}", "route": "cuda",
          "source": "tdnnf_nas_torch/csrc/blocked_den.cu",
-         "replaces": f"{_TPU_KERNELS}:282", "launches": launches["fwd"],
-         "max_abs_err": errs["fwd"], "ms": times["fwd"],
-         "plain_ms": times["fwd_plain"], "bound_ms": bound["fwd"][0],
-         "bound_by": bound["fwd"][1], "library_ms": lib["fwd"],
-         "bound_ms_3xtf32": bound_tc["fwd"],
-         "launches_per_scan": per_scan["fwd"]},
-        {"name": "blocked_den_bwd", "route": "cuda",
-         "source": "tdnnf_nas_torch/csrc/blocked_den.cu",
-         "replaces": f"{_TPU_KERNELS}:343", "launches": launches["bwd"],
-         "max_abs_err": errs["bwd"], "ms": times["bwd"],
-         "plain_ms": times["bwd_plain"], "bound_ms": bound["bwd"][0],
-         "bound_by": bound["bwd"][1], "library_ms": lib["bwd"],
-         "bound_ms_3xtf32": bound_tc["bwd"],
-         "launches_per_scan": per_scan["bwd"]},
+         "replaces": f"{_TPU_KERNELS}:{line}", "launches": launches[k],
+         **blk[k],
+         "max_abs_err": max(blk[k]["max_abs_err"], b16[k]["max_abs_err"]),
+         **{f"{key}_b16": v for key, v in b16[k].items()}}
+        for k, line in (("fwd", 282), ("bwd", 343))
     ] + dense
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Converters between the JAX package's state and the port's tensors.
 
 The JAX package keeps ``params``, ``bn_state``, a supernet's ``alphas``
-and each Adam state's ``m``/``v`` as nested dicts of arrays; callers
+and each Adam state's ``m``/``v``, the RNNLM's parameters and the LHUC
+logits as nested dicts of arrays; callers
 hand them over as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, tree)``), so this module never sees a JAX
 array.  Keys and layouts carry over one to one, including the
@@ -112,3 +113,27 @@ def batch_to_torch(batch: dict, device=DEFAULT_DEVICE):
     """Host numpy batch (``data.egs.batch_iterator``) -> tensors on device."""
     device = resolve_device(device)
     return map_batch(lambda _, a: torch.as_tensor(a).to(device), batch)
+
+
+def rnnlm_params_from_numpy(params, device=DEFAULT_DEVICE):
+    """The JAX package's RNNLM parameters as numpy (``init_rnnlm`` /
+    ``train_rnnlm``: embed, lstm.{wx, wh, b} and the optional lstm.wp,
+    out.{w, b}, and the optional tdnn.{w, b}) -> the same dict of
+    float32 tensors on ``device`` (``lm/rnnlm``'s layout)."""
+    return tree_to_torch(params, device)
+
+
+def rnnlm_params_to_numpy(params):
+    """Inverse of :func:`rnnlm_params_from_numpy`."""
+    return tree_to_numpy(params)
+
+
+def lhuc_from_numpy(lhuc, device=DEFAULT_DEVICE):
+    """The JAX package's LHUC logits ``{layer: [hidden]}`` as numpy ->
+    float32 tensors on ``device`` (``models/lhuc``)."""
+    return tree_to_torch(lhuc, device)
+
+
+def lhuc_to_numpy(lhuc):
+    """Inverse of :func:`lhuc_from_numpy`."""
+    return tree_to_numpy(lhuc)

@@ -1,6 +1,7 @@
 """Decoding (port of ``tdnnf_nas_tpu.decode``): Viterbi on the card, the
-sparse-HCLG beam search, lattices, rescoring and scoring on the host.
-The reference's exports, without the RNNLM rescorer."""
+sparse-HCLG beam search, lattices, n-gram and RNNLM rescoring and
+scoring on the host (the RNNLM's steps on its own device).  The
+reference's exports."""
 from tdnnf_nas_torch.decode.viterbi import viterbi_decode, path_to_phones
 from tdnnf_nas_torch.decode.scoring import edit_distance, wer, score_corpus
 from tdnnf_nas_torch.decode.wfst import (
@@ -19,4 +20,5 @@ from tdnnf_nas_torch.decode.lattice import (
     lattice_arc_posteriors,
     lattice_oracle_wer,
     rescore_lattice,
+    rescore_lattice_rnnlm,
 )

@@ -22,11 +22,12 @@ Lattice form: a time-synchronous DAG.  Node 0 is the super-start, node
 pairs.  Arcs carry (word | -1, acoustic score, graph score) separately so
 rescoring can swap the LM contribution out of the graph score.
 
-``Lattice.out_arcs`` and ``rescore_lattice`` cost what the arcs cost, not
+``Lattice.out_arcs`` and the rescorers cost what the arcs cost, not
 what the node ids span (a native lattice numbers every token it kept,
-most of them on no arc); their results are the reference's.  The RNNLM
-rescorers (``rescore_lattice_rnnlm``, ``rescore_lattices_rnnlm``) wait
-for ``lm/rnnlm``.
+most of them on no arc); their results are the reference's.  The
+frontier-batched RNNLM rescorer (``rescore_lattices_rnnlm``) keeps its
+recurrent states on the scorer's device and fetches one array of
+log-probs per longest-path level.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from tdnnf_nas_torch.decode.viterbi import log_weights
 from tdnnf_nas_torch.decode.wfst import DecodingGraph, WordLM
@@ -366,6 +368,21 @@ def _old_ctx_next(old_lm, prev, word: int, word_to_token=str):
     return word
 
 
+def _n_best_distinct(finals, n: int) -> List[Tuple[List[int], float]]:
+    """Up to n (words, score) of distinct word sequences, best first."""
+    finals = sorted(finals, key=lambda x: -x[0])
+    seen = set()
+    out = []
+    for sc, words in finals:
+        if words in seen:
+            continue
+        seen.add(words)
+        out.append((list(words), sc))
+        if len(out) >= n:
+            break
+    return out
+
+
 def rescore_lattice(
     lat: Lattice,
     old_lm: WordLM,
@@ -437,17 +454,266 @@ def rescore_lattice(
                 cur = dst.get(key)
                 if cur is None or nsc > cur[0]:
                     dst[key] = (nsc, nwords)
-    finals.sort(key=lambda x: -x[0])
-    seen = set()
-    out = []
-    for sc, words in finals:
-        if words in seen:
+    return _n_best_distinct(finals, n)
+
+
+def _rnn_old_prev(old_lm, hist: Tuple[int, ...], word_to_token=str):
+    """The first-pass LM's context of an RNNLM expansion state: the last
+    order-1 tokens after <s> for an NGramLM, else the last word id."""
+    if isinstance(old_lm, NGramLM):
+        return ((BOS,) + tuple(word_to_token(h) for h in hist))[
+            -(max(old_lm.order - 1, 1)):]
+    return hist[-1] if hist else -1
+
+
+def _mixer(interp_weight: float):
+    """lp(lp_rnn, lp_old): the RNNLM alone at w >= 1, the old LM at w <= 0,
+    else ln(w P_rnn + (1 - w) P_old) (Kaldi's `lmrescore_pruned.sh
+    --weight`), clamped as ``rescore_nbest_rnnlm_batched`` does."""
+    lw = math.log(max(interp_weight, 1e-30))
+    lnw = math.log(max(1.0 - interp_weight, 1e-30))
+
+    def mix(lp_rnn: float, lp_old: float) -> float:
+        if interp_weight >= 1.0:
+            return lp_rnn
+        if interp_weight <= 0.0:
+            return lp_old
+        return float(np.logaddexp(lw + lp_rnn, lnw + lp_old))
+
+    return mix
+
+
+def rescore_lattice_rnnlm(
+    lat: Lattice,
+    old_lm: WordLM,
+    scorer,
+    lm_scale: float = 1.0,
+    hist_len: int = 3,
+    n: int = 1,
+    beam: float = 20.0,
+    max_states_per_node: int = 32,
+    word_to_token=str,
+    interp_weight: float = 1.0,
+) -> List[Tuple[List[int], float]]:
+    """Pruned RNNLM lattice rescoring with n-gram history clustering, the
+    Kaldi `rnnlm/lmrescore_pruned.sh` approximation: expansion states
+    sharing a lattice node and the last ``hist_len`` words are merged
+    (best kept), each carrying its own recurrent state.
+
+    ``scorer`` provides ``initial_state()``, ``advance(state, word) ->
+    (ln p, new_state)`` and ``final_logprob(state)``
+    (``lm/rnnlm.RnnLMScorer``): one device step and one host fetch per
+    expansion.  ``interp_weight`` < 1 interpolates with the first-pass LM
+    in probability space; 1.0 replaces it.
+    """
+    mix = _mixer(interp_weight)
+    outs = lat.out_arcs()
+    # states[node]: {hist: (score, words, rnn_state)}, for nodes reached
+    states: Dict[int, Dict[Tuple[int, ...], Tuple[float, Tuple[int, ...],
+                                                  object]]] = {
+        lat.start: {(): (0.0, (), scorer.initial_state())}}
+    finals: List[Tuple[float, Tuple[int, ...]]] = []
+    for node in _node_order(lat):
+        node = int(node)
+        if not states.get(node):
             continue
-        seen.add(words)
-        out.append((list(words), sc))
-        if len(out) >= n:
-            break
-    return out
+        items = sorted(states[node].items(), key=lambda kv: -kv[1][0])
+        best_here = items[0][1][0]
+        items = [(h, v) for h, v in items
+                 if v[0] >= best_here - beam][:max_states_per_node]
+        for hist, (sc, words, rstate) in items:
+            if node == lat.end:
+                finals.append((sc, words))
+                continue
+            prev = _rnn_old_prev(old_lm, hist, word_to_token)
+            for e in outs[node]:
+                d = int(lat.arc_dst[e])
+                wd = int(lat.arc_word[e])
+                base = float(lat.arc_am[e]) + float(lat.arc_gs[e])
+                if wd >= 0:
+                    lp, nstate = scorer.advance(rstate, wd)
+                    lp_old = _old_lm_logprob(old_lm, prev, wd, word_to_token)
+                    nsc = sc + base + lm_scale * mix(lp, lp_old) - lp_old
+                    nhist = (hist + (wd,))[-hist_len:]
+                    nwords = words + (wd,)
+                elif d == lat.end:
+                    lp_old = _old_lm_final(old_lm, prev, word_to_token)
+                    nsc = (sc + base - lp_old + lm_scale
+                           * mix(scorer.final_logprob(rstate), lp_old))
+                    nstate, nhist, nwords = rstate, hist, words
+                else:
+                    nsc, nstate, nhist, nwords = sc + base, rstate, hist, words
+                dst = states.setdefault(d, {})
+                cur = dst.get(nhist)
+                if cur is None or nsc > cur[0]:
+                    dst[nhist] = (nsc, nwords, nstate)
+    return _n_best_distinct(finals, n)
+
+
+class _StatePool:
+    """The frontier rescorer's recurrent rows (h, c, px) on the device,
+    each addressed by one global row index (row 0: <s>).  Each level's
+    new rows are appended in place; capacity doubles when full."""
+
+    def __init__(self, rows):
+        self.bufs = list(rows)
+        self.n = rows[0].shape[0]
+
+    def append(self, rows) -> int:
+        """Store rows [N, ...]; returns the index of the first."""
+        k = rows[0].shape[0]
+        if self.n + k > self.bufs[0].shape[0]:
+            cap = max(2 * self.bufs[0].shape[0], self.n + k)
+            grown = []
+            for b in self.bufs:
+                g = b.new_empty((cap,) + tuple(b.shape[1:]))
+                g[: self.n] = b[: self.n]
+                grown.append(g)
+            self.bufs = grown
+        for b, r in zip(self.bufs, rows):
+            b[self.n: self.n + k] = r
+        self.n += k
+        return self.n - k
+
+    def gather(self, idx):
+        """Rows ``idx`` (a device index tensor) of every buffer."""
+        return [b.index_select(0, idx) for b in self.bufs]
+
+
+def _longest_path_levels(lat: Lattice, outs: "_ArcGroups"):
+    """{node: level} over the nodes on an arc (and start and end), in
+    ascending node id: the longest arc path from the start, so every arc
+    raises the level.  Relaxed in ``_node_order`` (start, by time, end)."""
+    active = np.unique(np.concatenate(
+        [lat.arc_src, lat.arc_dst, [lat.start, lat.end]]))
+    lev = {int(v): 0 for v in active}
+    for node in _node_order(lat):
+        node = int(node)
+        nxt = lev[node] + 1
+        for d in lat.arc_dst[outs[node]]:
+            d = int(d)
+            if lev[d] < nxt:
+                lev[d] = nxt
+    return lev
+
+
+def rescore_lattices_rnnlm(
+    lats: List[Lattice],
+    old_lm: WordLM,
+    scorer,
+    lm_scale: float = 1.0,
+    hist_len: int = 3,
+    n: int = 1,
+    beam: float = 20.0,
+    max_states_per_node: int = 32,
+    word_to_token=str,
+    interp_weight: float = 1.0,
+) -> List[List[Tuple[List[int], float]]]:
+    """Frontier-batched pruned RNNLM lattice rescoring: the results of
+    :func:`rescore_lattice_rnnlm` on each lattice (tested), with one
+    device call per longest-path level for all lattices together.
+
+    Nodes are grouped into longest-path levels (every arc raises the
+    level, so a level's states are final when it is expanded), and every
+    word or final expansion of a level, across all lattices, advances in
+    one ``scorer.advance_batch`` (``lm/rnnlm.RnnLMScorer``).  Recurrent
+    states stay on the device in one pool; a level uploads one [2, N]
+    index array (pool rows, words) and fetches one [2, N] array of
+    log-probs.  Returns one n-best list per lattice.
+    """
+    mix = _mixer(interp_weight)
+    # the old LM's lookups repeat heavily across hypotheses and lattices
+    prev_cache: Dict[tuple, object] = {}
+    lp_cache: Dict[tuple, float] = {}
+    fin_cache: Dict[object, float] = {}
+
+    def old_prev(hist):
+        v = prev_cache.get(hist)
+        if v is None:
+            v = prev_cache[hist] = _rnn_old_prev(old_lm, hist, word_to_token)
+        return v
+
+    def old_lp(prev, wd):
+        v = lp_cache.get((prev, wd))
+        if v is None:
+            v = lp_cache[(prev, wd)] = _old_lm_logprob(old_lm, prev, wd,
+                                                       word_to_token)
+        return v
+
+    def old_fin(prev):
+        v = fin_cache.get(prev)
+        if v is None:
+            v = fin_cache[prev] = _old_lm_final(old_lm, prev, word_to_token)
+        return v
+
+    outs_all = [lat.out_arcs() for lat in lats]
+    by_level: Dict[int, List[Tuple[int, int]]] = {}
+    for li, (lat, outs) in enumerate(zip(lats, outs_all)):
+        for node, lv in _longest_path_levels(lat, outs).items():
+            by_level.setdefault(lv, []).append((li, node))
+
+    pool = _StatePool(scorer.initial_state_batch())
+    # states[li][node]: hist -> (score, words, pool row)
+    states: List[Dict[int, Dict[tuple, tuple]]] = [
+        {lat.start: {(): (0.0, (), 0)}} for lat in lats]
+    finals: List[List[Tuple[float, tuple]]] = [[] for _ in lats]
+
+    for level in sorted(by_level):
+        rows: List[int] = []
+        words_in: List[int] = []
+        meta: List[tuple] = []  # (li, dst, base, hist, score, words)
+        for li, node in by_level[level]:
+            lat = lats[li]
+            here = states[li].get(node)
+            if not here:
+                continue
+            items = sorted(here.items(), key=lambda kv: -kv[1][0])
+            best_here = items[0][1][0]
+            items = [(h, v) for h, v in items
+                     if v[0] >= best_here - beam][:max_states_per_node]
+            for hist, (sc, words, row) in items:
+                if node == lat.end:
+                    finals[li].append((sc, words))
+                    continue
+                for e in outs_all[li][node]:
+                    d = int(lat.arc_dst[e])
+                    wd = int(lat.arc_word[e])
+                    base = float(lat.arc_am[e]) + float(lat.arc_gs[e])
+                    if wd >= 0 or d == lat.end:
+                        rows.append(row)
+                        words_in.append(wd)
+                        meta.append((li, d, base, hist, sc, words))
+                    else:  # epsilon: pass the state through
+                        dd = states[li].setdefault(d, {})
+                        cur = dd.get(hist)
+                        if cur is None or sc + base > cur[0]:
+                            dd[hist] = (sc + base, words, row)
+        if not rows:
+            continue
+        idx = torch.as_tensor(np.asarray([rows, words_in], np.int64),
+                              device=pool.bufs[0].device)
+        h, c, px = pool.gather(idx[0])
+        h2, c2, px2, lp_w, lp_eos = scorer.advance_batch(h, c, px, idx[1])
+        first = pool.append((h2, c2, px2))
+        for i, (li, d, base, hist, sc, words) in enumerate(meta):
+            wd = words_in[i]
+            prev = old_prev(hist)
+            dd = states[li].setdefault(d, {})
+            if wd < 0:  # final arc: swap the old LM's </s> for the mix
+                lp_old = old_fin(prev)
+                nsc = (sc + base - lp_old
+                       + lm_scale * mix(float(lp_eos[i]), lp_old))
+                cur = dd.get(hist)
+                if cur is None or nsc > cur[0]:
+                    dd[hist] = (nsc, words, rows[i])
+                continue
+            lp_old = old_lp(prev, wd)
+            nsc = sc + base + lm_scale * mix(float(lp_w[i]), lp_old) - lp_old
+            nhist = (hist + (wd,))[-hist_len:]
+            cur = dd.get(nhist)
+            if cur is None or nsc > cur[0]:
+                dd[nhist] = (nsc, words + (wd,), first + i)
+    return [_n_best_distinct(f, n) for f in finals]
 
 
 def determinize_lattice(lat: Lattice, max_states: int = 200000) -> Lattice:

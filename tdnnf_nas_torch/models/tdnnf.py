@@ -236,8 +236,13 @@ def _dropout(x: torch.Tensor, p, generator: Optional[torch.Generator],
 def _bypass(cur: torch.Tensor, prev: torch.Tensor, scale: float):
     """The TDNN-F bypass cur + scale * prev, the scale cast to cur's dtype
     before it multiplies, as the reference does (in bf16 it scales by
-    bf16(0.66) = 0.66015625)."""
-    return cur + torch.tensor(scale, dtype=cur.dtype, device=cur.device) * prev
+    bf16(0.66) = 0.66015625).  With LHUC scales one of cur and prev may
+    be float32 and the other bf16; jnp then multiplies in float32, where
+    torch would keep a 0-dim scale's product in prev's dtype, so both
+    operands are promoted first."""
+    dt = torch.promote_types(cur.dtype, prev.dtype)
+    s = torch.tensor(scale, dtype=cur.dtype, device=cur.device).to(dt)
+    return cur + s * prev.to(dt)
 
 
 def _input_layers(cfg: TdnnfModelConfig, params, bn_state, new_bn, feats,
@@ -273,13 +278,19 @@ def apply_model(
     train: bool = False,
     generator: Optional[torch.Generator] = None,
     dropout_p: Optional[float] = None,
+    post_bn_scales=None,
 ):
     """Forward pass.
 
     feats: [B, T_in, feat_dim] (T_in from chunk_input_frames());
     ivectors: [B, ivector_dim] when cfg.ivector_dim > 0; ``generator``
     draws the dropout masks (no dropout without one); ``dropout_p``
-    overrides the config's proportion (the trainer's schedule).
+    overrides the config's proportion (the trainer's schedule);
+    ``post_bn_scales``: optional {layer_name: [hidden]} float32 scales
+    multiplied in after that layer's batchnorm, before dropout and the
+    bypass (LHUC, models/lhuc.py).  As in the reference, a bf16
+    activation times a float32 scale is float32, and the layers after it
+    see that.
 
     Returns (chain_logits [B, T_out, P], xent_logits [B, T_out, P],
     new_bn_state) at the subsampled rate, logits in float32.
@@ -287,21 +298,32 @@ def apply_model(
     new_bn = {}
     dp = cfg.dropout_proportion if dropout_p is None else dropout_p
     x = _input_layers(cfg, params, bn_state, new_bn, feats, ivectors, train)
+    x = _scale(x, post_bn_scales, "tdnn1")
     x = _dropout(x, dp, generator, train)
 
     chain, xent = tdnnf_stack_and_heads(cfg, params, bn_state, new_bn, x,
                                         train, generator, consumed_left=1,
-                                        dropout_p=dp)
+                                        dropout_p=dp,
+                                        post_bn_scales=post_bn_scales)
     return chain, xent, new_bn
+
+
+def _scale(x: torch.Tensor, scales, name: str) -> torch.Tensor:
+    """x * scales[name] where the layer has a scale (torch promotes a bf16
+    x times a float32 scale to float32, as jnp does)."""
+    if scales is None or name not in scales:
+        return x
+    return x * scales[name]
 
 
 def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
                           x, train, generator, consumed_left: int = 1,
-                          dropout_p: float = 0.0):
+                          dropout_p: float = 0.0, post_bn_scales=None):
     """The tdnnf stack + prefinal/output heads on a hidden sequence x.
 
     consumed_left: original-frame position of x's frame 0, which fixes the
-    phase of the rate-optimized subsample.
+    phase of the rate-optimized subsample; ``post_bn_scales`` as in
+    :func:`apply_model`.
     """
     dt = cfg.dtype
     fs = cfg.frame_subsampling_factor
@@ -328,6 +350,7 @@ def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
                              bias=p["affine_b"], compute_dtype=dt).to(dt)
         cur = torch.relu(cur)
         cur, new_bn[name] = _batchnorm(cur, bn_state[name], train)
+        cur = _scale(cur, post_bn_scales, name)
         cur = _dropout(cur, dropout_p, generator, train)
         prev = x[:, l: x.shape[1] - r] if (l or r) else x
         x = _bypass(cur, prev, cfg.bypass_scale)

@@ -10,9 +10,12 @@ import torch
 
 from tdnnf_nas_torch import convert
 from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
+from tdnnf_nas_torch.data import ivector
 from tdnnf_nas_torch.decode import align, wfst
-from tdnnf_nas_torch.models import nas, tdnnf
+from tdnnf_nas_torch.lm import rnnlm
+from tdnnf_nas_torch.models import lhuc, nas, tdnnf
 from tdnnf_nas_torch.recipes import chain_recipes
+from tdnnf_nas_torch.tools import e2e_flagship
 from tdnnf_nas_torch.train import trainer
 from tdnnf_nas_torch.train.optimizer import tree_paths
 
@@ -36,6 +39,18 @@ _ENTRY_POINTS = {
     "align_corpus": (align.align_corpus, (None, None, None, [])),
     "align_utterance": (align.align_utterance, (None, [0], None, None, None)),
     "decode_words": (wfst.decode_words, (None, None)),
+    "train_ubm": (ivector.train_ubm, (None, None)),
+    "train_ivector_extractor": (ivector.train_ivector_extractor,
+                                (None, None, None)),
+    "extract_ivectors": (ivector.extract_ivectors, (None, None, None)),
+    "init_rnnlm": (rnnlm.init_rnnlm, (None, None)),
+    "train_rnnlm": (rnnlm.train_rnnlm, (None, None)),
+    "init_lhuc": (lhuc.init_lhuc, (None,)),
+    "adapt_lhuc": (lhuc.adapt_lhuc, (None,) * 6),
+    "lhuc_adapt_and_decode": (e2e_flagship.lhuc_adapt_and_decode,
+                              (None,) * 12),
+    "rnnlm_params_from_numpy": (convert.rnnlm_params_from_numpy, ({},)),
+    "lhuc_from_numpy": (convert.lhuc_from_numpy, ({},)),
 }
 
 
