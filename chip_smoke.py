@@ -10,7 +10,8 @@ denominator (10,271 states, 6,034 pdfs, 18,751,248 params), and against
 the bigram x left-biphone dense denominator (2,208 states, 2,208 pdfs,
 16,784,684 params), then the two-stage DARTS search against the dense
 den, then the decode path with i-vectors, RNNLM rescoring and LHUC
-speaker adaptation.  Checks the hand-written CUDA kernels of each path
+speaker adaptation, then the tri5_7d path (GMM ladder, +-1 tree,
+committed den with its wildcard term).  Checks the hand-written CUDA kernels of each path
 against their plain PyTorch versions.  Phases, each raising on failure:
 
   0. build both kernel libraries from ``tdnnf_nas_torch/csrc`` (one nvcc
@@ -101,13 +102,30 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      (WER before and after, ms/step, objf finite at every step, each
      blocked kernel once a step, each speaker's largest adapted logit
      non-zero); one float32 LHUC step on the card against the CPU's
-     through the plain den.
+     through the plain den;
+ 10. (``_tri5_7d_phase``) the reference's tri5_7d path on the symmetric
+     +-1 corpus of ``scripts/context_compare.py`` (``sym``: 30 phones,
+     24-dim features, 720 utterances, 60 held out): e2e stages 1-2
+     (``tools/e2e_flagship.bootstrap_stage``) with the SMOKE ladder of
+     ``e2e_flagship.py:149-155`` on the card (mono log-likelihood per
+     iteration, fmllr_gain, seconds), every phone begin held to the
+     port's CPU run of the same ladder (>= 99.9% equal, also on the first
+     40 utterances), then the 400-leaf +-1 tree; the committed trigram
+     den (300 extra LM states) with its wildcard term (states, arcs,
+     wildcard positions, R, C/NSRC/NDP, seconds); the blocked pair with
+     the wildcard against its plain version at B = 64, T = 50 on it
+     (``_blocked_check``: phase 2's bars, bit-for-bit repeats, times,
+     bounds, cuBLAS yardstick); launch counters reset, 20 bf16 steps of
+     the flagship 7q (24-dim input, no i-vectors, B = 64, den_obs_bf16):
+     objf finite, each blocked kernel once a step, ms/step and the card's
+     idle share over 2 profiled steps.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
 three TF32 tensor-core passes ``bound_ms_3xtf32``,
 ``launches_per_scan`` and, for the blocked pair, each of phase 2's
-fields again at LHUC's batch with the suffix ``_b16``), and as its last
+fields again at LHUC's batch with the suffix ``_b16`` and on phase 10's
++-1 den with the suffix ``_pm1``), and as its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
@@ -284,11 +302,13 @@ def _blocked_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int):
     ys = torch.empty_like(xs)
     mm = {"fwd": lambda: torch.bmm(xs, g.w_blocks, out=y),
           "bwd": lambda: torch.bmm(x, g.w_blocks.transpose(1, 2), out=ys)}
-    flops = 2.0 * batch_size * c * nsrc * ndp * (t - 1)
+    # a wildcard term adds a rank-R product a frame and its [R, V] rows
+    r_w = 0 if g.bcast_sel is None else g.bcast_sel.shape[1]
+    flops = 2.0 * batch_size * (c * nsrc * ndp + r_w * c * ndp) * (t - 1)
     n_obs = batch_size * t * c * ndp
     moved = {"fwd": 6.0 * n_obs, "bwd": 8.0 * n_obs}
     for k, o in out.items():
-        nbytes = moved[k] + 4.0 * c * nsrc * ndp
+        nbytes = moved[k] + 4.0 * c * nsrc * ndp + 4.0 * r_w * c * ndp
         o["ms"] = _cuda_ms(torch, run[k])
         o["plain_ms"] = _cuda_ms(torch, plain[k])
         o["bound_ms"], o["bound_by"] = _bound(flops, nbytes)
@@ -1639,6 +1659,162 @@ def _adapt_rescore_phase(torch, dev, gpu, ctx):
     return launches, b16
 
 
+# scripts/context_compare.py:65-72 with SYM on and HARD off: the symmetric
+# +-1 coarticulation corpus of docs/context_compare_sym.json
+PM1_CORPUS = dict(vocab_size=300, num_phones=30, feat_dim=24, num_utts=720,
+                  min_words=4, max_words=12, min_pron=2, max_pron=5,
+                  mean_dur=3.5, emission_noise=1.3, context_shift=0.8,
+                  right_context_shift=0.8, num_speakers=8, speaker_shift=1.0,
+                  seed=0)
+PM1_TEST, PM1_LEAVES, PM1_STEPS = 60, 400, 20
+
+
+def _tri5_7d_phase(torch, dev, gpu):
+    """Phase 10, the reference's tri5_7d path: the GMM ladder on the card
+    (held against the port's CPU run), the 400-leaf +-1 tree from its
+    alignments, the committed trigram den with its wildcard term, the
+    blocked pair against its plain version on it (``_blocked_check``), and
+    20 flagship training steps on it.  Returns (the blocked kernels'
+    launches over the training steps, their ``_blocked_check`` fields)."""
+    import itertools
+
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.data import batch_iterator
+    from tdnnf_nas_torch.data.synthetic import (WordCorpusConfig,
+                                                make_word_corpus)
+    from tdnnf_nas_torch.gmm import GmmLadderConfig, MonoHmmConfig
+    from tdnnf_nas_torch.gmm.ladder import run_gmm_ladder
+    from tdnnf_nas_torch.models import TdnnfModelConfig
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
+    from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
+    from tdnnf_nas_torch.tools.e2e_flagship import bootstrap_stage
+    from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
+                                       TrainerConfig, init_train_state,
+                                       make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = WordCorpusConfig(**PM1_CORPUS)
+    utts, _, _, _, _, topo = make_word_corpus(cfg)[:6]
+    train = utts[PM1_TEST:]
+    phones = [u.phones for u in train]
+    speakers = [u.speaker for u in train]
+    n_phones = cfg.num_phones
+
+    # ---- 10.1 the GMM ladder (e2e_flagship.py:149-155, SMOKE) ----
+    ladder_cfg = GmmLadderConfig(
+        mono=MonoHmmConfig(num_iters=8, max_mix=2, mix_up_iters=(4,)),
+        tri_leaves=120, tri_em_iters=6, splice_context=2, lda_dim=36,
+        lda_mllt_em_iters=5, sat_em_iters=4, train_subset=80)
+    feats = [u.feats for u in train]
+    t0 = time.perf_counter()
+    cpu = run_gmm_ladder(feats, phones, n_phones, ladder_cfg,
+                         speakers=speakers, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    tree, ladder, secs = bootstrap_stage(
+        train, phones, n_phones, ladder_cfg, PM1_LEAVES, tree_kind="pm1",
+        speakers=speakers, frame_subsampling_factor=3, device=dev)
+    n_ph = sum(len(b) for b in cpu.begins)
+    same = sum(int(x == y) for a, b in zip(ladder.begins, cpu.begins)
+               for x, y in zip(a, b))
+    n40 = sum(len(b) for b in cpu.begins[:40])
+    same40 = sum(int(x == y) for a, b in zip(ladder.begins[:40],
+                                             cpu.begins[:40])
+                 for x, y in zip(a, b))
+    print(f"[tri5_7d gmm] ladder on the card {secs['gmm']:.1f} s (CPU "
+          f"{t_cpu:.1f} s), {len(train)} utts ({sum(len(f) for f in feats)} "
+          f"frames), subset 80: mono loglike per iteration "
+          + " ".join(f"{v:.4f}" for v in ladder.mono_ll)
+          + f"; fmllr_gain {ladder.fmllr_gain:.4f} (CPU "
+          f"{cpu.fmllr_gain:.4f}); phone begins equal to the CPU run's: "
+          f"{same}/{n_ph} ({100.0 * same / n_ph:.3f}%), first 40 utts "
+          f"{same40}/{n40} ({gpu})", flush=True)
+    _check(same >= 0.999 * n_ph and same40 >= 0.999 * n40,
+           "GMM phone begins on the card equal the CPU run's in >= 99.9%")
+    _check(all(np.isfinite(ladder.mono_ll)), "finite mono log-likelihoods")
+
+    # ---- 10.2 the +-1 tree and the committed trigram den ----
+    t0 = time.perf_counter()
+    bundle = prepare_data(train, phones, tree, topo, n_phones,
+                          phone_lm_order=3, num_extra_lm_states=300)
+    t_den = time.perf_counter() - t0
+    host = bundle.den_arrays
+    c, nsrc, ndp = host.shape
+    r_w = host.bcast_sel.shape[1]
+    w_mb = 4.0 * c * nsrc * ndp / 1e6
+    print(f"[tri5_7d den] tree {tree.num_pdfs} pdfs in {secs['tree']:.1f} "
+          f"s; committed den {bundle.den_fsa.num_states} states, "
+          f"{len(bundle.den_fsa.arc_dst)} arcs, "
+          f"{len(bundle.den_fsa.wildcard_positions)} wildcard positions, "
+          f"R={r_w}, C/NSRC/NDP={c}/{nsrc}/{ndp} (W {w_mb:.1f} MB) in "
+          f"{t_den:.1f} s", flush=True)
+    _check(bundle.den_fsa.committed and r_w >= 1, "a committed den with a "
+           "wildcard term")
+    g = BlockedDenGraph.from_host(host, dev)
+
+    # ---- 10.3 the blocked pair with the wildcard vs plain, B=64 T=50 ----
+    pm1 = _blocked_check(torch, dev, gpu, g, tree.num_pdfs, 64)
+    frames = 49
+    print(f"[tri5_7d den] W streamed from device memory every frame: "
+          f"{w_mb * frames / 1e3:.2f} GB a scan, "
+          f"{w_mb * 1e6 * frames / _PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s "
+          f"(beside the bounds above, which move W once) ({gpu})",
+          flush=True)
+
+    # ---- 10.4 20 flagship steps on the committed den ----
+    mc = TdnnfModelConfig(num_pdfs=tree.num_pdfs, feat_dim=cfg.feat_dim,
+                          ivector_dim=0)
+    tc = TrainerConfig(
+        objective=ChainObjectiveConfig(den_obs_bf16=True),
+        optimizer=OptimizerConfig(kind="adam", lr_initial=1e-3,
+                                  lr_final=1e-4, num_steps=100000))
+    t0 = time.perf_counter()
+    chunks = bundle.egs(mc, chunk_width=50, max_phones_per_chunk=40)
+    batches = [convert.batch_to_torch(b, dev) for b in itertools.islice(
+        batch_iterator(chunks, batch_size=64, rng=np.random.RandomState(0)),
+        PM1_STEPS + 2)]
+    t_egs = time.perf_counter() - t0
+    state = init_train_state(mc, tc, torch.Generator().manual_seed(0), dev)
+    step = make_train_step(mc, tc, g)
+    bdc.blocked_den_fwd_cuda.launches = 0
+    bdc.blocked_den_bwd_cuda.launches = 0
+    objf, times = [], []
+    for i in range(PM1_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        objf.append(float(m["objf_mmi"]))
+        times.append(time.perf_counter() - t0)
+        _check(bdc.blocked_den_fwd_cuda.launches == i + 1
+               and bdc.blocked_den_bwd_cuda.launches == i + 1,
+               "one launch of each blocked kernel per +-1 step")
+    launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
+                "bwd": bdc.blocked_den_bwd_cuda.launches}
+    held = [state]
+
+    def two_steps():
+        for b in batches[PM1_STEPS:]:
+            held[0], _ = step(held[0], b)
+
+    idle = _idle_share(torch, two_steps)
+    ms = sorted(t * 1e3 for t in times[2:])
+    print(f"[tri5_7d train] {len(chunks)} chunks in {t_egs:.1f} s; "
+          f"{PM1_STEPS} bf16 steps (B=64, chunk 50, den_obs_bf16, feat 24, "
+          f"no i-vectors): objf_mmi " + " ".join(f"{v:.4f}" for v in objf)
+          + f"; after 2 warm-up steps median {ms[len(ms) // 2]:.1f} ms/step "
+          f"({ms[0]:.1f}-{ms[-1]:.1f}); launches fwd={launches['fwd']} "
+          f"bwd={launches['bwd']}; card idle over 2 profiled steps: "
+          + (f"{100 * idle[0]:.1f}% ({idle[1]:.1f} ms of kernels in "
+             f"{idle[2]:.1f} ms)" if idle else "no device event recorded")
+          + f" ({gpu})", flush=True)
+    _check(all(np.isfinite(objf)), "objf_mmi finite at every +-1 step")
+    _check(launches["fwd"] == launches["bwd"] == PM1_STEPS,
+           "each blocked kernel launched once per +-1 step")
+    print(f"[tri5_7d phase] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, pm1
+
+
 def main() -> int:
     import torch
 
@@ -1835,21 +2011,25 @@ def main() -> int:
     # ---- 9. RNNLM rescoring and LHUC on phase 8's model and lattices ----
     lhuc_launches, b16 = _adapt_rescore_phase(torch, dev, gpu, ctx)
     del ctx
+    # ---- 10. the tri5_7d path: GMM ladder, +-1 tree, committed den ----
+    pm1_launches, pm1 = _tri5_7d_phase(torch, dev, gpu)
     for k in ("fwd", "bwd"):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
               f"loader-fed phase {loader_launches[k]}, decode-phase "
               f"training {decode_launches[k]}, LHUC steps "
-              f"{lhuc_launches[k]}", flush=True)
+              f"{lhuc_launches[k]}, +-1 steps {pm1_launches[k]}", flush=True)
         launches[k] += (loader_launches[k] + decode_launches[k]
-                        + lhuc_launches[k])
+                        + lhuc_launches[k] + pm1_launches[k])
 
     kernels = [
         {"name": f"blocked_den_{k}", "route": "cuda",
          "source": "tdnnf_nas_torch/csrc/blocked_den.cu",
          "replaces": f"{_TPU_KERNELS}:{line}", "launches": launches[k],
          **blk[k],
-         "max_abs_err": max(blk[k]["max_abs_err"], b16[k]["max_abs_err"]),
-         **{f"{key}_b16": v for key, v in b16[k].items()}}
+         "max_abs_err": max(blk[k]["max_abs_err"], b16[k]["max_abs_err"],
+                            pm1[k]["max_abs_err"]),
+         **{f"{key}_b16": v for key, v in b16[k].items()},
+         **{f"{key}_pm1": v for key, v in pm1[k].items()}}
         for k, line in (("fwd", 282), ("bwd", 343))
     ] + dense
     print(gpu)

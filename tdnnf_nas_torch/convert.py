@@ -2,7 +2,8 @@
 
 The JAX package keeps ``params``, ``bn_state``, a supernet's ``alphas``
 and each Adam state's ``m``/``v``, the RNNLM's parameters and the LHUC
-logits as nested dicts of arrays; callers
+logits as nested dicts of arrays, and the GMM ladder's models as numpy
+arrays; callers
 hand them over as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, tree)``), so this module never sees a JAX
 array.  Keys and layouts carry over one to one, including the
@@ -137,3 +138,32 @@ def lhuc_from_numpy(lhuc, device=DEFAULT_DEVICE):
 def lhuc_to_numpy(lhuc):
     """Inverse of :func:`lhuc_from_numpy`."""
     return tree_to_numpy(lhuc)
+
+
+def am_gmm_from_jax(am, device=DEFAULT_DEVICE):
+    """The JAX package's ``gmm.AmGmm`` (per-state numpy GMMs) as the
+    port's ``gmm.AmGmm`` (padded float64 tensors on ``device``)."""
+    from tdnnf_nas_torch.gmm.gmm import AmGmm
+
+    dev = resolve_device(device)
+    return AmGmm.from_gmms(
+        am.gmms, am.num_phones, am.states_per_phone, am.self_loop_prob,
+        tie_table=(None if am.tie_table is None
+                   else np.asarray(am.tie_table, np.int64)),
+        device=dev)
+
+
+def ladder_result_from_jax(res, device=DEFAULT_DEVICE):
+    """The JAX package's ``gmm.GmmLadderResult`` as the port's: the model
+    on ``device``, the transforms and alignments copied as they are."""
+    from tdnnf_nas_torch.gmm.ladder import GmmLadderResult
+
+    dev = resolve_device(device)
+    return GmmLadderResult(
+        am=am_gmm_from_jax(res.am, dev),
+        transform=np.array(res.transform, np.float64),
+        fmllr={k: np.array(v, np.float64) for k, v in res.fmllr.items()},
+        begins=[list(b) for b in res.begins],
+        ends=[list(e) for e in res.ends],
+        mono_ll=list(res.mono_ll), mllt_aux=list(res.mllt_aux),
+        fmllr_gain=float(res.fmllr_gain))

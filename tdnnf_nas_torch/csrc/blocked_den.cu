@@ -60,11 +60,16 @@
 // What bounds it on an H100: per frame 2*B*C*NSRC*NDP = 1.3 GFLOP at the
 // flagship shape (B=64, C=7, NSRC=538, NDP=2690): 0.95 ms a 49-frame scan
 // at the 67 TFLOP/s float32 rate, 0.39 ms as three TF32 passes at 495.
-// Memory is no bound (obs, alphas, W: 0.12-0.16 ms at 3.35 TB/s).  W
-// (40.5 MB, rows padded to 16 bytes once per graph) streams from L2 each
-// frame through a 4-stage ring of 16-byte cp.async copies (129 KB); none
-// of it stays resident across frames, since a 64 x 160 tile needs 344 KB
-// of W.  What holds it back (tools/blocked_den_phases.py, per frame): the
+// Obs, alphas and W moved once take 0.12-0.16 ms at 3.35 TB/s.  W (rows
+// padded to 16 bytes once per graph) streams through a 4-stage ring of
+// 16-byte cp.async copies (129 KB) every frame; none of it stays resident
+// across frames, since a 64 x 160 tile needs 344 KB of W.  At the flagship
+// W is 40.5 MB and each frame finds it in the 50 MB L2.  At a committed +-1
+// graph's shape (C=22, NSRC=556, NDP=2796) it is 136.8 MB: it no longer
+// fits L2, so each frame streams it from device memory (2.0 ms over a
+// 49-frame scan at 3.35 TB/s), which sets the 3xTF32 bound there (the
+// float32 rate's 3.2 ms does not change).  What holds it back at the
+// flagship (tools/blocked_den_phases.py, per frame): the
 // product's main loop, 27 us forward and 35 us adjoint, bound by the
 // mma.sync rate of three TF32 passes (one pass saves 7 and 11 us) and by
 // the W stream (no copies saves 4 and 10 us), which overlap only in part
@@ -73,10 +78,28 @@
 // wgmma (twice the mma.sync rate) fed by TMA, and keeping the next frame's
 // W in flight across the barriers, are the next steps.
 //
-// Every numeric reduction runs in a fixed order with no atomics (the
-// barrier's counter is the only atomic), so runs repeat bit for bit.  The
-// wildcard (rank-R broadcast) term of committed +-1 graphs is not
-// implemented here; the Python wrapper refuses such graphs.
+// A row that does not fit the row passes' shared memory (V > 51,196
+// floats, the +-1 shape's 61,512 among them) is read through L2 in place
+// (__ldcg: the products were written by other blocks in this launch) with
+// the same arithmetic.
+//
+// The wildcard (rank-R broadcast) term of committed +-1 graphs, for R <=
+// kMaxR groups, each source slot in at most one group (gid[j], -1 = none),
+// each group with its shared out-row vec[g] [V]:
+//   forward  a += (beta @ sel) @ vec: phase G sums each group's betas over
+//            its part of the row (per thread in slot order, then a block
+//            sum) into wpart[b][h][g]; the product epilogue adds
+//            sum_g (sum_h wpart) * vec[g][col] before the obs multiply;
+//   adjoint  u += (v @ vec^T) @ sel^T: phase F sums z[g] = v . vec[g] over
+//            its part of the carrier it writes (zpart), and the group sums
+//            of beta0 (w0part), both double-buffered by frame parity; the
+//            next phase F adds z[g] to each member's u and
+//            sum_g z[g] * (sum of the group's beta0) to the row dot.
+// The host launches the instantiation of each scan that the graph needs
+// (rows staged or read through L2, with or without the wildcard term), so
+// a graph without a wildcard and with staged rows runs code that has
+// neither.  Every numeric reduction runs in a fixed order with no atomics
+// (the barrier's counter is the only atomic), so runs repeat bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +129,9 @@ constexpr int kRingBytes = kStages * (A_STAGE + B_STAGE) * 4;  // 129,024
 constexpr int kSmemBytes = 200 * 1024;  // ring, or rows of the row passes
 constexpr int kUnroll = 8;   // loads in flight per thread in the row passes
 constexpr int kPad = 64;     // scratch sections start on 256-byte bounds
+constexpr int kMaxR = 4;     // wildcard groups the kernels take
+constexpr int kMaxH = 16;    // row parts of the row passes, at most
+constexpr int kSmemFloats = kSmemBytes / 4;
 
 static_assert(MT * 16 * 2 == BM && NT * 8 * 4 == BN, "warp tiling");
 static_assert(kRingBytes <= kSmemBytes, "the ring fits");
@@ -245,9 +271,27 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // Row passes: row b of B is cut into H parts, H as large as keeps the
-// B*H items within one per block.
+// B*H items within one per block, and at most kMaxH.  What a part computes
+// per element does not depend on H.
 __device__ __forceinline__ int row_parts(int B) {
-  return max(1, (int)gridDim.x / B);
+  return max(1, min(kMaxH, (int)gridDim.x / B));
+}
+
+// A row element: from shared memory, or (kL2) through L2 from global memory
+// written earlier in this launch.
+template <bool kL2>
+__device__ __forceinline__ float row_at(const float* row, int i) {
+  if (kL2) return __ldcg(row + i);
+  return row[i];
+}
+
+// Adds x into acc[g] for the wildcard group g of its slot (gg < 0: none),
+// with no dynamic register indexing.
+__device__ __forceinline__ void add_to_group(float (&acc)[kMaxR], int gg,
+                                             float x) {
+#pragma unroll
+  for (int g = 0; g < kMaxR; ++g)
+    if (gg == g) acc[g] += x;
 }
 
 __device__ __forceinline__ int part_begin(int n, int h, int H) {
@@ -273,12 +317,12 @@ __device__ float* stage_async(float* base, const float* src, int n) {
   return dst;
 }
 
-// The forward's gather from a row staged in shared memory, for source
-// slots j in [j0, j1): store(j, sum_r row[enter(perm[j], r)] + row[loop j],
-// add[j]) with add[j] read only when add is not null.  Each thread's global
-// loads are issued together, before any use (a warp issues in order, and
-// a use of a pending load stalls it).
-template <typename F>
+// The forward's gather from a row staged in shared memory (or, kL2, read
+// in place through L2), for source slots j in [j0, j1): store(j, sum_r
+// row[enter(perm[j], r)] + row[loop j], add[j]) with add[j] read only when
+// add is not null.  Each thread's global loads are issued together, before
+// any use (a warp issues in order, and a use of a pending load stalls it).
+template <bool kL2, typename F>
 __device__ void gather_row(const int* __restrict__ perm,
                            const float* __restrict__ add, const float* row,
                            int C, int NSRC, int NDP, int R, FastDiv fnsrc,
@@ -298,12 +342,12 @@ __device__ void gather_row(const int* __restrict__ perm,
       const int j = i0 + u * kThreads;
       if (j >= j1) continue;
       const int c = fnsrc.div(j), s = j - c * NSRC;
-      float x = row[c * NDP + R * NDPOS + s];  // loop slot
+      float x = row_at<kL2>(row, c * NDP + R * NDPOS + s);  // loop slot
       if (k[u] < C * NDPOS) {
         const int kc = fndpos.div(k[u]);
         const float* e = row + kc * NDP + (k[u] - kc * NDPOS);
-        float acc = e[0];
-        for (int r = 1; r < R; ++r) acc += e[r * NDPOS];
+        float acc = row_at<kL2>(e, 0);
+        for (int r = 1; r < R; ++r) acc += row_at<kL2>(e, r * NDPOS);
         x = acc + x;
       }
       store(j, x, ad[u]);
@@ -491,8 +535,10 @@ struct FwdArgs {
   const float* init_pos;   // [C*NSRC]
   const float* init_v;     // [V]
   const float* final_v;    // [V]
+  const int* gid;          // [C*NSRC] wildcard group of a slot, -1 = none
+  const float* bvec;       // [RW, V] the groups' shared out-rows
   float leaky;
-  int B, T, C, NSRC, NDP, R, LDW;
+  int B, T, C, NSRC, NDP, R, LDW, RW;  // RW: wildcard groups, 0 = none
   float* alphas;           // [T, B, V] normalized
   float* cs;               // [T, B]
   float* logz;             // [B]
@@ -501,6 +547,7 @@ struct FwdArgs {
   float* araw;             // [B, V] unnormalized alpha of the last frame
   float* partial;          // [B, P] row sums per tile
   float* partial_f;        // [B, P] row sums of araw * final_v per tile
+  float* wpart;            // [B, kMaxH, RW] group sums of beta per part
   FastDiv fd_nsrc, fd_ndp, fd_ndpos;
 };
 
@@ -509,11 +556,12 @@ __device__ __forceinline__ int fwd_partials(const FwdArgs<ObsT>& p) {
   return p.C * ((p.NDP + BN - 1) / BN);
 }
 
-// Phase P of frame t: the product tiles (frame 0: init_v * obs_0), each
-// writing its unnormalized tile and one partial row sum.
-template <typename ObsT>
+// Phase P of frame t: the product tiles (frame 0: init_v * obs_0), plus
+// the wildcard term, each writing its unnormalized tile and one partial row
+// sum.
+template <bool kWild, typename ObsT>
 __device__ void fwd_products(const FwdArgs<ObsT>& p, int t, float* smem,
-                             float (*red)[4]) {
+                             float (*red)[4], float (*wms)[kMaxR]) {
   const int V = p.C * p.NDP;
   const int ntd = (p.NDP + BN - 1) / BN;
   const int P = p.C * ntd;
@@ -540,6 +588,29 @@ __device__ void fwd_products(const FwdArgs<ObsT>& p, int t, float* smem,
           ok ? load_obs(p.obs, ((size_t)row * p.T + t) * V + col) : 0.f;
       if (t == 0) acc[i][j][q] = ok ? __ldg(p.init_v + col) : 0.f;
     });
+    if (kWild && t > 0) {
+      // the tile rows' group sums of beta: the row parts' sums in order
+      const int H = row_parts(p.B);
+      if (threadIdx.x < BM) {
+        const int row = mt * BM + threadIdx.x;
+#pragma unroll
+        for (int g = 0; g < kMaxR; ++g) {
+          float w = 0.f;
+          if (g < p.RW && row < p.B)
+            for (int h = 0; h < H; ++h)
+              w += __ldcg(p.wpart + ((size_t)row * kMaxH + h) * p.RW + g);
+          wms[threadIdx.x][g] = w;
+        }
+      }
+      __syncthreads();
+      for_each_frag([&](int i, int j, int q, int r, int n) {
+        const int d = n0 + n;
+        if (d < p.NDP)
+          for (int g = 0; g < p.RW; ++g)
+            acc[i][j][q] += wms[r][g] *
+                            __ldg(p.bvec + (size_t)g * V + c * p.NDP + d);
+      });
+    }
     float rs[MT][2] = {}, rf[MT][2] = {};
     const bool aligned = ((V | p.NDP) & 1) == 0;
     for_each_frag([&](int i, int j, int q, int r, int n) {
@@ -571,9 +642,11 @@ __device__ void fwd_products(const FwdArgs<ObsT>& p, int t, float* smem,
 // Phase G of frame t (t < T-1), per row part: c_t (every warp reduces the
 // row's partials in the same order, so all blocks hold the same bits),
 // alphas[t] = araw / c_t, cs[t], and beta of frame t+1 gathered from the
-// row staged in shared memory, 1/c_t folded in.
-template <typename ObsT>
-__device__ void fwd_gather(const FwdArgs<ObsT>& p, int t, float* smem) {
+// row staged in shared memory (kL2: read in place), 1/c_t folded in; with
+// a wildcard term, the part's group sums of beta.
+template <bool kL2, bool kWild, typename ObsT>
+__device__ void fwd_gather(const FwdArgs<ObsT>& p, int t, float* smem,
+                           float* red) {
   const int V = p.C * p.NDP;
   const int CS = p.C * p.NSRC;
   const int Bp = (p.B + BM - 1) / BM * BM;
@@ -582,24 +655,38 @@ __device__ void fwd_gather(const FwdArgs<ObsT>& p, int t, float* smem) {
   const int H = row_parts(p.B);
   for (int item = blockIdx.x; item < p.B * H; item += gridDim.x) {
     const int b = item / H, h = item % H;
-    const float* row = stage_async(smem, p.araw + (size_t)b * V, V);
-    cp_async_commit();
+    const float* row = p.araw + (size_t)b * V;
+    if (!kL2) {
+      row = stage_async(smem, row, V);
+      cp_async_commit();
+    }
     const float c = fmaxf(warp_sum_of(p.partial + (size_t)b * P, P), kTiny);
     const float rc = 1.f / c;
-    cp_async_wait<0>();
-    __syncthreads();
+    if (!kL2) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
     float* out = p.alphas + ((size_t)t * p.B + b) * V;
     const int v1 = part_begin(V, h + 1, H);
     for (int v = part_begin(V, h, H) + threadIdx.x; v < v1; v += kThreads)
-      out[v] = row[v] * rc;
-    gather_row(p.perm, p.leaky > 0.f ? p.init_pos : nullptr, row, p.C,
-               p.NSRC, p.NDP, p.R, p.fd_nsrc, p.fd_ndpos, part_begin(CS, h, H),
-               part_begin(CS, h + 1, H), [&](int j, float x, float ip) {
-                 x = x * rc;
-                 if (p.leaky > 0.f) x += p.leaky * ip;
-                 const int cc = p.fd_nsrc.div(j);
-                 p.beta[((size_t)cc * Bp + b) * KP + (j - cc * p.NSRC)] = x;
-               });
+      out[v] = row_at<kL2>(row, v) * rc;
+    float wacc[kMaxR] = {};
+    gather_row<kL2>(p.perm, p.leaky > 0.f ? p.init_pos : nullptr, row, p.C,
+                    p.NSRC, p.NDP, p.R, p.fd_nsrc, p.fd_ndpos,
+                    part_begin(CS, h, H), part_begin(CS, h + 1, H),
+                    [&](int j, float x, float ip) {
+                      x = x * rc;
+                      if (p.leaky > 0.f) x += p.leaky * ip;
+                      const int cc = p.fd_nsrc.div(j);
+                      p.beta[((size_t)cc * Bp + b) * KP + (j - cc * p.NSRC)] =
+                          x;
+                      if (kWild) add_to_group(wacc, __ldg(p.gid + j), x);
+                    });
+    for (int g = 0; kWild && g < p.RW; ++g) {
+      const float w = block_sum(wacc[g], red);
+      if (threadIdx.x == 0)
+        p.wpart[((size_t)b * kMaxH + h) * p.RW + g] = w;
+    }
     if (h == 0 && threadIdx.x == 0) p.cs[(size_t)t * p.B + b] = c;
     __syncthreads();
   }
@@ -650,17 +737,21 @@ __device__ void fwd_finish(const FwdArgs<ObsT>& p) {
   }
 }
 
-template <typename ObsT>
+// kL2: rows that do not fit shared memory, gathered in place through L2;
+// kWild: a wildcard term.  The host picks the instantiation, so a graph
+// without either runs code that has neither.
+template <bool kL2, bool kWild, typename ObsT>
 __global__ void __launch_bounds__(kThreads, 1) fwd_scan(FwdArgs<ObsT> p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float red[BM][4];
-  fwd_products(p, 0, smem, red);
+  __shared__ float wms[BM][kMaxR];
+  fwd_products<kWild>(p, 0, smem, red, wms);
   for (int t = 1; t < p.T; ++t) {
     grid_sync(p.counter);
-    fwd_gather(p, t - 1, smem);
+    fwd_gather<kL2, kWild>(p, t - 1, smem, &red[0][0]);
     grid_sync(p.counter);
-    fwd_products(p, t, smem, red);
+    fwd_products<kWild>(p, t, smem, red, wms);
   }
   grid_sync(p.counter);
   fwd_finish(p);
@@ -678,28 +769,52 @@ struct BwdArgs {
   const float* alphas;     // [T, B, V]
   const float* cs;         // [T, B]
   const float* gbar;       // [B]
-  int B, T, C, NSRC, NDP, R, LDW, S;
+  const int* gid;          // [C*NSRC] wildcard group of a slot, -1 = none
+  const float* bvec;       // [RW, V] the groups' shared out-rows
+  int B, T, C, NSRC, NDP, R, LDW, S, RW;  // RW: wildcard groups, 0 = none
   ObsT* grad;              // [B, T, V]
   unsigned int* counter;   // barrier, zeroed
   float* vcar;             // [C, Bp, NDPP], zero padding
   float* upart;            // [S, B, C*NSRC]
   float* dpart;            // [B, C*NTS*S] partial dots
   float* beta0;            // [B, C*NSRC] gather of alpha_t, no leaky
+  float* zpart;            // [2, B, kMaxH, RW] carrier . vec[g] per part
+  float* w0part;           // [2, B, kMaxH, RW] group sums of beta0 per part
   FastDiv fd_nsrc, fd_ndp, fd_ndpos;
 };
 
+// Wildcard partial sums of frame t, buffer t & 1: row b, part h, group g.
+template <typename ObsT>
+__device__ __forceinline__ float* wild_at(const BwdArgs<ObsT>& p, float* base,
+                                          int t, int b, int h) {
+  return base + (((size_t)(t & 1) * p.B + b) * kMaxH + h) * p.RW;
+}
+
+// Block sums of acc[g], written by thread 0 to dst[g].
+template <typename ObsT>
+__device__ __forceinline__ void store_group_sums(const BwdArgs<ObsT>& p,
+                                                 const float (&acc)[kMaxR],
+                                                 float* dst, float* red) {
+  for (int g = 0; g < p.RW; ++g) {
+    const float w = block_sum(acc[g], red);
+    if (threadIdx.x == 0) dst[g] = w;
+  }
+}
+
 // Part [v0, v1) of row b of frame t: bar = g - dot + gbar, the obs
 // gradient alpha*bar / max(obs, 1e-30) in obs's dtype and, for t > 0, the
-// carrier (bar / c_t) * obs.  kLast: g = gbar * final_v / zfin (rzfin =
-// 1 / zfin); else g is
+// carrier (bar / c_t) * obs, adding carrier * vec[g] into zacc[g] on a
+// wildcard graph.  kLast: g = gbar * final_v / zfin (rzfin = 1 / zfin);
+// else g is
 // u (staged in shared memory as us) through perm_inv, broadcast to the R
 // enter slots, and the loop slice.  Global loads first (clamped indices, no
 // branches), then the shared-memory reads that depend on them, then the
 // stores.
-template <bool kLast, typename ObsT>
+template <bool kLast, bool kWild, typename ObsT>
 __device__ __forceinline__ void bwd_emit(const BwdArgs<ObsT>& p, int t,
                                          int b, int v0, int v1, float dot,
-                                         const float* us, float rzfin) {
+                                         const float* us, float rzfin,
+                                         float (&zacc)[kMaxR]) {
   const int V = p.C * p.NDP;
   const int CS = p.C * p.NSRC;
   const int NDPOS = (p.NDP - p.NSRC) / p.R;
@@ -737,28 +852,39 @@ __device__ __forceinline__ void bwd_emit(const BwdArgs<ObsT>& p, int t,
                  __fdividef(a[u] * bar, fmaxf(o[u], kObsFloor)));
       if (t > 0) {
         const int c = p.fd_ndp.div(v);
-        p.vcar[((size_t)c * Bp + b) * NDPP + (v - c * p.NDP)] =
-            (bar * rct) * o[u];
+        const float x = (bar * rct) * o[u];
+        p.vcar[((size_t)c * Bp + b) * NDPP + (v - c * p.NDP)] = x;
+        if (kWild) {
+#pragma unroll
+          for (int g = 0; g < kMaxR; ++g)
+            if (g < p.RW) zacc[g] += x * __ldg(p.bvec + (size_t)g * V + v);
+        }
       }
     }
   }
 }
 
 // beta0 of frame t (the forward's gather of alpha_t, no leaky term) for
-// part h of row b, from alpha_t's row staged in shared memory.
-template <typename ObsT>
-__device__ void bwd_beta0(const BwdArgs<ObsT>& p, int b, int h, int H,
-                          const float* arow) {
+// part h of row b, from alpha_t's row staged in shared memory (kL2: read in
+// place); on a wildcard graph, the part's group sums of beta0 into w0part.
+template <bool kL2, bool kWild, typename ObsT>
+__device__ void bwd_beta0(const BwdArgs<ObsT>& p, int t, int b, int h, int H,
+                          const float* arow, float* red) {
   const int CS = p.C * p.NSRC;
-  gather_row(p.perm, nullptr, arow, p.C, p.NSRC, p.NDP, p.R, p.fd_nsrc,
-             p.fd_ndpos, part_begin(CS, h, H), part_begin(CS, h + 1, H),
-             [&](int j, float x, float) { p.beta0[(size_t)b * CS + j] = x; });
+  float wacc[kMaxR] = {};
+  gather_row<kL2>(p.perm, nullptr, arow, p.C, p.NSRC, p.NDP, p.R, p.fd_nsrc,
+                  p.fd_ndpos, part_begin(CS, h, H), part_begin(CS, h + 1, H),
+                  [&](int j, float x, float) {
+                    p.beta0[(size_t)b * CS + j] = x;
+                    if (kWild) add_to_group(wacc, __ldg(p.gid + j), x);
+                  });
+  if (kWild) store_group_sums(p, wacc, wild_at(p, p.w0part, t, b, h), red);
 }
 
 // Frame T-1, per row part: S = sum(alpha_last * final_v) over the whole
 // row (a block sum, the same bits in every block), zfin = max(S, 1e-30),
 // g = gbar * final_v / zfin, dot = gbar * S / zfin; then beta0 of T-2.
-template <typename ObsT>
+template <bool kL2, bool kWild, typename ObsT>
 __device__ void bwd_last(const BwdArgs<ObsT>& p, float* smem, float* red) {
   const int V = p.C * p.NDP;
   const int H = row_parts(p.B);
@@ -779,18 +905,21 @@ __device__ void bwd_last(const BwdArgs<ObsT>& p, float* smem, float* red) {
     const float S = block_sum(s, red);
     const float zfin = fmaxf(S, kTiny);
     const float gb = __ldg(p.gbar + b);
-    const float* arow = smem;
-    if (p.T > 1) {
-      arow = stage_async(smem, p.alphas + ((size_t)(p.T - 2) * p.B + b) * V,
-                         V);
+    const float* arow =
+        p.T > 1 ? p.alphas + ((size_t)(p.T - 2) * p.B + b) * V : nullptr;
+    if (!kL2 && p.T > 1) {
+      arow = stage_async(smem, arow, V);
       cp_async_commit();
     }
-    bwd_emit<true>(p, p.T - 1, b, part_begin(V, h, H),
-                   part_begin(V, h + 1, H), gb * (S / zfin), nullptr,
-                   1.f / zfin);
+    float zacc[kMaxR] = {};
+    bwd_emit<true, kWild>(p, p.T - 1, b, part_begin(V, h, H),
+                          part_begin(V, h + 1, H), gb * (S / zfin), nullptr,
+                          1.f / zfin, zacc);
+    if (kWild && p.T > 1)
+      store_group_sums(p, zacc, wild_at(p, p.zpart, p.T - 1, b, h), red);
     cp_async_wait<0>();
     __syncthreads();
-    if (p.T > 1) bwd_beta0(p, b, h, H, arow);
+    if (p.T > 1) bwd_beta0<kL2, kWild>(p, p.T - 2, b, h, H, arow, red);
     __syncthreads();
   }
 }
@@ -847,11 +976,15 @@ __device__ void bwd_products(const BwdArgs<ObsT>& p, float* smem,
 
 // Phase F of frame t, per row part: the row's dot (every warp reduces the
 // partials in the same order), u = the sum of the S partials in order,
-// staged in shared memory with alpha_{t-1}'s row; g_t through perm_inv
+// staged in shared memory with alpha_{t-1}'s row (kL2: that row is read in
+// place); on a wildcard graph z[g] = v_{t+1} . vec[g] and the group sums
+// of beta0_t from the previous phase F's parts, z[g] added to each member's
+// u and sum_g z[g] * (group sum) to the dot; g_t through perm_inv
 // (sentinel C*NSRC reads zero), broadcast to the R enter slots, and the
 // loop slice; the outputs of frame t; beta0 of frame t-1.
-template <typename ObsT>
-__device__ void bwd_frame(const BwdArgs<ObsT>& p, int t, float* smem) {
+template <bool kL2, bool kWild, typename ObsT>
+__device__ void bwd_frame(const BwdArgs<ObsT>& p, int t, float* smem,
+                          float* red) {
   const int V = p.C * p.NDP;
   const int CS = p.C * p.NSRC;
   const int NDPOS = (p.NDP - p.NSRC) / p.R;
@@ -860,13 +993,27 @@ __device__ void bwd_frame(const BwdArgs<ObsT>& p, int t, float* smem) {
   float* us = smem;
   for (int item = blockIdx.x; item < p.B * H; item += gridDim.x) {
     const int b = item / H, h = item % H;
-    const float* arow = us;
-    if (t > 0) {
-      arow = stage_async(smem + (CS + 3) / 4 * 4,
-                         p.alphas + ((size_t)(t - 1) * p.B + b) * V, V);
+    const float* arow =
+        t > 0 ? p.alphas + ((size_t)(t - 1) * p.B + b) * V : nullptr;
+    if (!kL2 && t > 0) {
+      arow = stage_async(smem + (CS + 3) / 4 * 4, arow, V);
       cp_async_commit();
     }
-    const float dot = warp_sum_of(p.dpart + (size_t)b * Pd, Pd);
+    float dot = warp_sum_of(p.dpart + (size_t)b * Pd, Pd);
+    float z[kMaxR] = {};
+    if (kWild) {
+      float wsum[kMaxR] = {};
+#pragma unroll
+      for (int g = 0; g < kMaxR; ++g) {
+        if (g >= p.RW) continue;
+        for (int hh = 0; hh < H; ++hh) {
+          z[g] += __ldcg(wild_at(p, p.zpart, t + 1, b, hh) + g);
+          wsum[g] += __ldcg(wild_at(p, p.w0part, t, b, hh) + g);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxR; ++g) dot += z[g] * wsum[g];
+    }
     for (int j0 = threadIdx.x; j0 < CS; j0 += kThreads * kUnroll) {
       float x[kUnroll] = {};
       for (int sp = 0; sp < p.S; ++sp) {
@@ -878,32 +1025,46 @@ __device__ void bwd_frame(const BwdArgs<ObsT>& p, int t, float* smem) {
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) x[u] += y[u];
       }
+      if (kWild) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gg = __ldg(p.gid + min(j0 + u * kThreads, CS - 1));
+#pragma unroll
+          for (int g = 0; g < kMaxR; ++g)
+            if (gg == g) x[u] += z[g];
+        }
+      }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int j = j0 + u * kThreads;
         if (j < CS) us[j] = x[u];
       }
     }
-    cp_async_wait<0>();
+    if (!kL2) cp_async_wait<0>();
     __syncthreads();
-    bwd_emit<false>(p, t, b, part_begin(V, h, H), part_begin(V, h + 1, H),
-                    dot, us, 0.f);
-    if (t > 0) bwd_beta0(p, b, h, H, arow);
+    float zacc[kMaxR] = {};
+    bwd_emit<false, kWild>(p, t, b, part_begin(V, h, H),
+                           part_begin(V, h + 1, H), dot, us, 0.f, zacc);
+    if (kWild && t > 0)
+      store_group_sums(p, zacc, wild_at(p, p.zpart, t, b, h), red);
+    if (t > 0) bwd_beta0<kL2, kWild>(p, t - 1, b, h, H, arow, red);
     __syncthreads();
   }
 }
 
-template <typename ObsT>
+// kL2: alpha rows that do not fit beside u in shared memory, read in place;
+// kWild: a wildcard term.  The host picks the instantiation.
+template <bool kL2, bool kWild, typename ObsT>
 __global__ void __launch_bounds__(kThreads, 1) bwd_scan(BwdArgs<ObsT> p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float red[BM][4];
-  bwd_last(p, smem, &red[0][0]);
+  bwd_last<kL2, kWild>(p, smem, &red[0][0]);
   for (int t = p.T - 2; t >= 0; --t) {
     grid_sync(p.counter);
     bwd_products(p, smem, red);
     grid_sync(p.counter);
-    bwd_frame(p, t, smem);
+    bwd_frame<kL2, kWild>(p, t, smem, &red[0][0]);
   }
 }
 
@@ -930,21 +1091,21 @@ cudaError_t persistent_grid(K kernel, int* grid) {
   return cudaSuccess;
 }
 
-// Shapes the kernels take: enter slots, 32-bit element counts, a row and its
-// gathered sources fit the shared memory of the row passes, W rows padded
-// to a multiple of 4 floats.
-bool shape_ok(int B, int C, int NSRC, int NDP, int LDW) {
+// Shapes the kernels take: enter slots, 32-bit element counts, the
+// adjoint's u row fits the shared memory of the row passes, W rows padded
+// to a multiple of 4 floats, at most kMaxR wildcard groups.
+bool shape_ok(int B, int C, int NSRC, int NDP, int LDW, int RW) {
   const long long V = (long long)C * NDP;
   return B >= 1 && NDP > NSRC && B * V < (1LL << 31) &&
-         V + (long long)C * NSRC + 8 <= kSmemBytes / 4 && LDW % 4 == 0 &&
-         LDW >= NDP;
+         (long long)C * NSRC + 8 <= kSmemFloats && LDW % 4 == 0 &&
+         LDW >= NDP && RW >= 0 && RW <= kMaxR;
 }
 
 struct FwdLayout {
-  size_t counter, beta, araw, partial, partial_f, total;
+  size_t counter, beta, araw, partial, partial_f, wpart, total;
 };
 
-FwdLayout fwd_layout(int B, int C, int NSRC, int NDP) {
+FwdLayout fwd_layout(int B, int C, int NSRC, int NDP, int RW) {
   const size_t Bp = (B + BM - 1) / BM * BM;
   const size_t KP = (NSRC + BK - 1) / BK * BK;
   const size_t P = (size_t)C * ((NDP + BN - 1) / BN);
@@ -954,19 +1115,22 @@ FwdLayout fwd_layout(int B, int C, int NSRC, int NDP) {
   l.araw = l.beta + pad_up(C * Bp * KP);
   l.partial = l.araw + pad_up((size_t)B * C * NDP);
   l.partial_f = l.partial + pad_up(B * P);
-  l.total = l.partial_f + pad_up(B * P);
+  l.wpart = l.partial_f + pad_up(B * P);
+  l.total = l.wpart + pad_up((size_t)B * kMaxH * RW);
   return l;
 }
 
 template <typename ObsT>
 cudaError_t fwd_impl(FwdArgs<ObsT> p, float* scratch, cudaStream_t st) {
-  if (!shape_ok(p.B, p.C, p.NSRC, p.NDP, p.LDW)) return cudaErrorInvalidValue;
-  const FwdLayout l = fwd_layout(p.B, p.C, p.NSRC, p.NDP);
+  if (!shape_ok(p.B, p.C, p.NSRC, p.NDP, p.LDW, p.RW))
+    return cudaErrorInvalidValue;
+  const FwdLayout l = fwd_layout(p.B, p.C, p.NSRC, p.NDP, p.RW);
   p.counter = reinterpret_cast<unsigned int*>(scratch + l.counter);
   p.beta = scratch + l.beta;
   p.araw = scratch + l.araw;
   p.partial = scratch + l.partial;
   p.partial_f = scratch + l.partial_f;
+  p.wpart = scratch + l.wpart;
   p.fd_nsrc = FastDiv(p.NSRC);
   p.fd_ndp = FastDiv(p.NDP);
   p.fd_ndpos = FastDiv((p.NDP - p.NSRC) / p.R);
@@ -974,19 +1138,23 @@ cudaError_t fwd_impl(FwdArgs<ObsT> p, float* scratch, cudaStream_t st) {
   cudaError_t err =
       cudaMemsetAsync(scratch, 0, l.araw * sizeof(float), st);
   if (err != cudaSuccess) return err;
+  const bool l2 = (long long)p.C * p.NDP + 4 > kSmemFloats;
+  auto kernel = l2 ? (p.RW ? fwd_scan<true, true, ObsT>
+                           : fwd_scan<true, false, ObsT>)
+                   : (p.RW ? fwd_scan<false, true, ObsT>
+                           : fwd_scan<false, false, ObsT>);
   int grid = 0;
-  if ((err = persistent_grid(fwd_scan<ObsT>, &grid)) != cudaSuccess)
-    return err;
+  if ((err = persistent_grid(kernel, &grid)) != cudaSuccess) return err;
   void* args[] = {&p};
-  return cudaLaunchCooperativeKernel((const void*)fwd_scan<ObsT>, grid,
-                                     kThreads, args, kSmemBytes, st);
+  return cudaLaunchCooperativeKernel((const void*)kernel, grid, kThreads,
+                                     args, kSmemBytes, st);
 }
 
 struct BwdLayout {
-  size_t counter, vcar, upart, dpart, beta0, total;
+  size_t counter, vcar, upart, dpart, beta0, zpart, w0part, total;
 };
 
-BwdLayout bwd_layout(int B, int C, int NSRC, int NDP, int S) {
+BwdLayout bwd_layout(int B, int C, int NSRC, int NDP, int S, int RW) {
   const size_t Bp = (B + BM - 1) / BM * BM;
   const size_t NDPP = (NDP + BK - 1) / BK * BK;
   const size_t CS = (size_t)C * NSRC;
@@ -997,29 +1165,45 @@ BwdLayout bwd_layout(int B, int C, int NSRC, int NDP, int S) {
   l.upart = l.vcar + pad_up(C * Bp * NDPP);
   l.dpart = l.upart + pad_up(S * B * CS);
   l.beta0 = l.dpart + pad_up(B * Pd);
-  l.total = l.beta0 + pad_up(B * CS);
+  l.zpart = l.beta0 + pad_up(B * CS);
+  l.w0part = l.zpart + pad_up((size_t)2 * B * kMaxH * RW);
+  l.total = l.w0part + pad_up((size_t)2 * B * kMaxH * RW);
   return l;
 }
 
-// Splits of the adjoint's product over d: as many as fill the grid.
+// Splits of the adjoint's product over d: as many as fill the grid in one
+// wave.  Where one split per tile already fills more than half the grid (the
+// +-1 shape: 88 tiles on 132 SMs), the S <= 4 with the fewest waves per
+// unit of depth, ceil(tiles * S / grid) / S (S = 3 there: two waves of a
+// third of the depth each, against one wave of the whole depth on 88 SMs).
 int bwd_splits_for(int grid, int B, int C, int NSRC, int NDP) {
   const int tiles = (B + BM - 1) / BM * C * ((NSRC + BN - 1) / BN);
   const int kchunks = (NDP + BK - 1) / BK;
   int s = grid / tiles;
-  if (s < 1) s = 1;
+  if (s < 2) {
+    s = 1;
+    for (int c = 2; c <= 4; ++c) {
+      const long long waves_c = ((long long)tiles * c + grid - 1) / grid;
+      const long long waves_s = ((long long)tiles * s + grid - 1) / grid;
+      if (waves_c * s < waves_s * c) s = c;
+    }
+  }
   if (s > kchunks) s = kchunks;
   return s;
 }
 
 template <typename ObsT>
 cudaError_t bwd_impl(BwdArgs<ObsT> p, float* scratch, cudaStream_t st) {
-  if (!shape_ok(p.B, p.C, p.NSRC, p.NDP, p.LDW)) return cudaErrorInvalidValue;
-  const BwdLayout l = bwd_layout(p.B, p.C, p.NSRC, p.NDP, p.S);
+  if (!shape_ok(p.B, p.C, p.NSRC, p.NDP, p.LDW, p.RW))
+    return cudaErrorInvalidValue;
+  const BwdLayout l = bwd_layout(p.B, p.C, p.NSRC, p.NDP, p.S, p.RW);
   p.counter = reinterpret_cast<unsigned int*>(scratch + l.counter);
   p.vcar = scratch + l.vcar;
   p.upart = scratch + l.upart;
   p.dpart = scratch + l.dpart;
   p.beta0 = scratch + l.beta0;
+  p.zpart = scratch + l.zpart;
+  p.w0part = scratch + l.w0part;
   p.fd_nsrc = FastDiv(p.NSRC);
   p.fd_ndp = FastDiv(p.NDP);
   p.fd_ndpos = FastDiv((p.NDP - p.NSRC) / p.R);
@@ -1027,82 +1211,97 @@ cudaError_t bwd_impl(BwdArgs<ObsT> p, float* scratch, cudaStream_t st) {
   cudaError_t err =
       cudaMemsetAsync(scratch, 0, l.upart * sizeof(float), st);
   if (err != cudaSuccess) return err;
+  const long long cs4 = ((long long)p.C * p.NSRC + 3) / 4 * 4;
+  const bool l2 = cs4 + (long long)p.C * p.NDP + 4 > kSmemFloats;
+  auto kernel = l2 ? (p.RW ? bwd_scan<true, true, ObsT>
+                           : bwd_scan<true, false, ObsT>)
+                   : (p.RW ? bwd_scan<false, true, ObsT>
+                           : bwd_scan<false, false, ObsT>);
   int grid = 0;
-  if ((err = persistent_grid(bwd_scan<ObsT>, &grid)) != cudaSuccess)
-    return err;
+  if ((err = persistent_grid(kernel, &grid)) != cudaSuccess) return err;
   if (bwd_splits_for(grid, p.B, p.C, p.NSRC, p.NDP) != p.S)
     return cudaErrorInvalidValue;
   void* args[] = {&p};
-  return cudaLaunchCooperativeKernel((const void*)bwd_scan<ObsT>, grid,
-                                     kThreads, args, kSmemBytes, st);
+  return cudaLaunchCooperativeKernel((const void*)kernel, grid, kThreads,
+                                     args, kSmemBytes, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the forward needs.
-long long blocked_den_fwd_scratch(int B, int C, int NSRC, int NDP) {
-  return (long long)fwd_layout(B, C, NSRC, NDP).total;
+// Floats of scratch the forward needs with RW wildcard groups.
+long long blocked_den_fwd_scratch(int B, int C, int NSRC, int NDP, int RW) {
+  return (long long)fwd_layout(B, C, NSRC, NDP, RW).total;
 }
+
+// Wildcard groups the kernels take.
+int blocked_den_max_groups() { return kMaxR; }
 
 // d-splits of the adjoint's product on this device (0 on a CUDA error).
 int blocked_den_bwd_splits(int B, int C, int NSRC, int NDP) {
   int grid = 0;
-  if (persistent_grid(bwd_scan<float>, &grid) != cudaSuccess) return 0;
+  if (persistent_grid(bwd_scan<false, false, float>, &grid) != cudaSuccess)
+    return 0;
   return bwd_splits_for(grid, B, C, NSRC, NDP);
 }
 
-// Floats of scratch the adjoint needs with S splits.
-long long blocked_den_bwd_scratch(int B, int C, int NSRC, int NDP, int S) {
-  return (long long)bwd_layout(B, C, NSRC, NDP, S).total;
+// Floats of scratch the adjoint needs with S splits, RW wildcard groups.
+long long blocked_den_bwd_scratch(int B, int C, int NSRC, int NDP, int S,
+                                  int RW) {
+  return (long long)bwd_layout(B, C, NSRC, NDP, S, RW).total;
 }
 
 // Forward scan.  obs [B,T,V] (f32, or bf16 when obs_bf16); w [C,NSRC,LDW]
-// with LDW a multiple of 4 >= NDP and zeros past NDP.  Writes the
-// normalized alphas [T,B,V], the scales cs [T,B] and logz [B].  scratch:
-// blocked_den_fwd_scratch(...) floats.  One memset and one cooperative
-// launch on `stream`; no host sync, no allocation.
+// with LDW a multiple of 4 >= NDP and zeros past NDP; RW wildcard groups
+// (0: none, gid and bvec unused): gid [C*NSRC] each slot's group or -1,
+// bvec [RW,V] the groups' out-rows.  Writes the normalized alphas [T,B,V],
+// the scales cs [T,B] and logz [B].  scratch: blocked_den_fwd_scratch(...)
+// floats.  One memset and one cooperative launch on `stream`; no host
+// sync, no allocation.
 int blocked_den_fwd(const void* obs, int obs_bf16, const float* w,
                     const int* perm, const float* init_pos,
-                    const float* init_v, const float* final_v, float leaky,
-                    int B, int T, int C, int NSRC, int NDP, int R, int LDW,
+                    const float* init_v, const float* final_v,
+                    const int* gid, const float* bvec, float leaky, int B,
+                    int T, int C, int NSRC, int NDP, int R, int LDW, int RW,
                     float* alphas, float* cs, float* logz, float* scratch,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (obs_bf16) {
     FwdArgs<__nv_bfloat16> p{static_cast<const __nv_bfloat16*>(obs), w, perm,
-                             init_pos, init_v, final_v, leaky, B, T, C, NSRC,
-                             NDP, R, LDW, alphas, cs, logz};
+                             init_pos, init_v, final_v, gid, bvec, leaky, B,
+                             T, C, NSRC, NDP, R, LDW, RW, alphas, cs, logz};
     return (int)fwd_impl(p, scratch, st);
   }
   FwdArgs<float> p{static_cast<const float*>(obs), w, perm, init_pos, init_v,
-                   final_v, leaky, B, T, C, NSRC, NDP, R, LDW, alphas, cs,
-                   logz};
+                   final_v, gid, bvec, leaky, B, T, C, NSRC, NDP, R, LDW, RW,
+                   alphas, cs, logz};
   return (int)fwd_impl(p, scratch, st);
 }
 
 // Adjoint scan.  Writes grad [B,T,V] = d(sum_b gbar_b logz_b)/d obs in
-// obs's dtype; w as for the forward.  S from blocked_den_bwd_splits;
-// scratch: blocked_den_bwd_scratch(..., S) floats.  One memset and one
-// cooperative launch on `stream`; no host sync, no allocation.
+// obs's dtype; w, RW, gid and bvec as for the forward.  S from
+// blocked_den_bwd_splits; scratch: blocked_den_bwd_scratch(..., S, RW)
+// floats.  One memset and one cooperative launch on `stream`; no host
+// sync, no allocation.
 int blocked_den_bwd(const void* obs, int obs_bf16, const float* w,
                     const int* perm, const int* perm_inv,
                     const float* final_v, const float* alphas,
-                    const float* cs, const float* gbar, int B, int T, int C,
-                    int NSRC, int NDP, int R, int LDW, int S, void* grad,
-                    float* scratch, void* stream) {
+                    const float* cs, const float* gbar, const int* gid,
+                    const float* bvec, int B, int T, int C, int NSRC, int NDP,
+                    int R, int LDW, int S, int RW, void* grad, float* scratch,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (obs_bf16) {
     BwdArgs<__nv_bfloat16> p{static_cast<const __nv_bfloat16*>(obs), w, perm,
-                             perm_inv, final_v, alphas, cs, gbar, B, T, C,
-                             NSRC, NDP, R, LDW, S,
+                             perm_inv, final_v, alphas, cs, gbar, gid, bvec,
+                             B, T, C, NSRC, NDP, R, LDW, S, RW,
                              static_cast<__nv_bfloat16*>(grad)};
     return (int)bwd_impl(p, scratch, st);
   }
   BwdArgs<float> p{static_cast<const float*>(obs), w, perm, perm_inv,
-                   final_v, alphas, cs, gbar, B, T, C, NSRC, NDP, R, LDW, S,
-                   static_cast<float*>(grad)};
+                   final_v, alphas, cs, gbar, gid, bvec, B, T, C, NSRC, NDP,
+                   R, LDW, S, RW, static_cast<float*>(grad)};
   return (int)bwd_impl(p, scratch, st);
 }
 

@@ -163,11 +163,15 @@ def make_egs(
             den_init_seq = (
                 (utt_init[0][idx], utt_init[1][idx])
                 if utt_init is not None else None)
+            i_last = int(idx[-1])
+            nxt_ph = (int(utt.phones[i_last + 1])
+                      if i_last + 1 < len(utt.phones) else -1)
             sup = make_chunk_supervision(
                 ph, b.tolist(), e.tolist(), lm, topo, tree, w, cfg.max_states,
                 tol=cfg.tolerance, den_init_fn=den_init_fn,
                 den_init_seq=den_init_seq,
                 init_ctx=ctxs[i0], init_left=lefts[i0],
+                next_phone=nxt_ph,
             )
             in_start = c * fs  # padded coords: original frame c*fs - left + left
             feats = padded[in_start : in_start + cfg.input_frames_for(w)]

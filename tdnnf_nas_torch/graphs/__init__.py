@@ -12,6 +12,10 @@ from tdnnf_nas_torch.graphs.supervision import (ChunkSupervision,
                                                 stack_supervisions)
 from tdnnf_nas_torch.graphs.topology import (BiphoneTree, ChainTopology,
                                              ContextIndependentTree,
-                                             TriphoneTree)
-from tdnnf_nas_torch.graphs.tree_cluster import (accumulate_triphone_stats,
-                                                 build_clustered_triphone_tree)
+                                             CrossTriphoneTree, TriphoneTree)
+from tdnnf_nas_torch.graphs.tree_cluster import (
+    ClusteredBiphoneTree, TreeStats, TriphoneStats,
+    accumulate_cross_triphone_stats, accumulate_tree_stats,
+    accumulate_triphone_stats, build_clustered_cross_triphone_tree,
+    build_clustered_tree, build_clustered_triphone_tree,
+    build_tree_from_corpus)

@@ -6,14 +6,16 @@ Equivalent of Kaldi's ``chain-make-den-fst``, in two forms:
   ``build_denominator_graph`` returns a ``graphs.fsa.StateGraph`` whose
   device copy is ``ops.fwdbwd.DenGraphArrays.from_graph``;
   ``den_init_lookup`` maps numerator states to its initial probs;
-* composed (n-gram LM x topology x left-context tree):
-  ``compile_denominator_fsa`` builds the factored state-emitting FSA and
+* composed (n-gram LM x topology x context tree):
+  ``compile_denominator_fsa`` builds the factored state-emitting FSA (for
+  a +-1 tree, the committed-successor composition) and
   ``CompiledDenFsa.to_blocked`` its superblocked export, whose device copy
-  is ``ops.fwdbwd.BlockedDenGraph.from_host``.
+  is ``ops.fwdbwd.BlockedDenGraph.from_host``; the committed graph's
+  wildcard positions become its rank-R broadcast term.
 
 ``CompiledDenFsa.to_state_graph`` is its dense [S,S] export (small
 graphs: the phone decode of ``recipes.chain_recipes.decode_corpus``).
-Not ported yet: the committed +-1 composition and ``to_factored``.
+``to_factored`` is not ported.
 """
 
 from __future__ import annotations
@@ -100,8 +102,9 @@ class BlockedDenGraph:
     (NDp = R*NDPOS + NSRC slots, V = C*NDp in all); see
     ``ops/fwdbwd.BlockedDenGraph`` for the per-frame recursion.
     ``bcast_sel``/``bcast_vec`` are the rank-R wildcard term of committed
-    (+-1) graphs; this port's compiler never produces one, but the
-    device graph and the plain scan accept it.
+    (+-1) graphs: ``bcast_sel`` [C*NSRC, R'] marks each group's source
+    slots (a slot is in at most one group), ``bcast_vec`` [R', V] is the
+    group's shared out-row.
     """
 
     w_blocks: np.ndarray  # [C, NSRC, NDp] f32
@@ -147,6 +150,14 @@ class CompiledDenFsa:
     loop_state: Dict[int, int]  # pos_id -> state id
     start_pos: int  # position id at BOS
     pos_trans: Dict[Tuple[int, int], Tuple[int, int]]  # (pos, phone) -> (dest pos, pdf)
+    # committed-successor composition (+-1 right-context trees): positions
+    # carry the next phone; walk keys are (pos, commitment) from normal
+    # positions and (pos, consumed, commitment) from wildcard ones
+    committed: bool = False
+    # positions whose out-arcs span source classes but are identical across
+    # the group (the committed composition's wildcard/EOS restarts): the
+    # blocked export factors them as rank-R broadcast terms
+    wildcard_positions: Optional[List[int]] = None
 
     def to_state_graph(self) -> StateGraph:
         """Dense [S,S] export (tests / small graphs)."""
@@ -178,7 +189,9 @@ class CompiledDenFsa:
         enter states are padded into runs of ``enter_pad`` (R); positions
         with more enters split into several subpositions carrying identical
         out-rows (their masses add, so the recursion is exact).  Topology
-        self-loops fold into W as diagonal loop columns.  See
+        self-loops fold into W as diagonal loop columns;
+        ``wildcard_positions`` (identical-out-arc hubs of the committed +-1
+        composition) become rank-R broadcast terms.  See
         `ops/fwdbwd.BlockedDenGraph` for the layout and per-frame recursion.
         Raises ValueError when the padded block volume exceeds
         ``budget_entries``.
@@ -196,7 +209,10 @@ class CompiledDenFsa:
         dst = np.asarray(self.arc_dst, np.int64)
         w = np.asarray(self.arc_w, np.float64)
         is_loop = dst == loop_of[src]
-        blocked = ~is_loop
+        wild = np.zeros((npos,), bool)
+        if self.wildcard_positions:
+            wild[np.asarray(self.wildcard_positions, np.int64)] = True
+        blocked = ~is_loop & ~wild[src]
         bsrc, bdst_pos = src[blocked], pos_of_state[dst[blocked]]
 
         # ---- union-find: all (non-wildcard) sources of a dest position
@@ -368,6 +384,30 @@ class CompiledDenFsa:
             for i in range(i0, i0 + n_sub_pos[p]):
                 w_blocks[sb, i, r_pad * ndpos + i0] += wt
 
+        # ---- wildcard broadcast groups (identical out-arc signatures) ----
+        bcast_sel = bcast_vec = None
+        wild_ids = np.nonzero(wild)[0]
+        if len(wild_ids):
+            groups: Dict[tuple, list] = {}
+            arcs_by_src: Dict[int, list] = {int(p): [] for p in wild_ids}
+            for a_i in np.nonzero(~is_loop & wild[src])[0]:
+                arcs_by_src[int(src[a_i])].append(
+                    (int(dst[a_i]), float(w[a_i])))
+            for p, arcs in arcs_by_src.items():
+                sig = tuple(sorted(arcs))
+                groups.setdefault(sig, []).append(p)
+            r_count = len(groups)
+            bcast_sel = np.zeros((cs_total, r_count), np.float32)
+            bcast_vec = np.zeros((r_count, c_count * ndp), np.float64)
+            bcast_members = np.zeros((r_count,), np.float64)
+            for gi, (sig, members) in enumerate(sorted(groups.items())):
+                bcast_members[gi] = len(members)
+                for p in members:
+                    for i in range(n_sub_pos[p]):
+                        bcast_sel[sub0_src[p] + i, gi] = 1.0
+                for st, wt in sig:
+                    bcast_vec[gi, enter_slot[st]] += wt
+
         # ---- virtual-axis vectors ----
         v_total = c_count * ndp
         pdf_v = np.zeros((v_total,), np.int32)
@@ -418,7 +458,11 @@ class CompiledDenFsa:
             mult[sub0_src[p]: sub0_src[p] + n_sub_pos[p]] = n_sub_pos[p]
         wsum = (w_blocks / np.maximum(
             mult.reshape(c_count, nsrc, 1), 1.0)).sum(axis=1).reshape(-1)
-        got = wsum[state_to_virtual]
+        tot_new = wsum.copy()
+        if bcast_vec is not None:
+            # one arc per member POSITION (sub-slot betas telescope)
+            tot_new += (bcast_vec * bcast_members[:, None]).sum(axis=0)
+        got = tot_new[state_to_virtual]
         if not np.allclose(got, tot_ref, rtol=1e-6, atol=1e-9):
             bad = np.argmax(np.abs(got - tot_ref))
             raise AssertionError(
@@ -433,8 +477,9 @@ class CompiledDenFsa:
             pdf_virtual=pdf_v,
             init_virtual=init_v.astype(np.float32),
             final_virtual=final_v.astype(np.float32),
-            bcast_sel=None,
-            bcast_vec=None,
+            bcast_sel=bcast_sel,
+            bcast_vec=(None if bcast_vec is None
+                       else bcast_vec.astype(np.float32)),
             enter_pad=r_pad,
             num_states=s,
             num_pdfs=self.num_pdfs,
@@ -448,6 +493,14 @@ class CompiledDenFsa:
         e = np.zeros((n,), np.float32)
         l = np.zeros((n,), np.float32)
         pos = self.start_pos
+        if self.committed:
+            for i, q in enumerate(phones):
+                r = int(phones[i + 1]) if i + 1 < n else -1
+                k = (pos, int(q), r) if i == 0 else (pos, r)
+                pos, pdf = self.pos_trans[k]
+                e[i] = self.init[self.enter_state[(pos, pdf)]]
+                l[i] = self.init[self.loop_state[pos]]
+            return e, l
         for i, q in enumerate(phones):
             pos, pdf = self.pos_trans[(pos, int(q))]
             e[i] = self.init[self.enter_state[(pos, pdf)]]
@@ -455,14 +508,210 @@ class CompiledDenFsa:
         return e, l
 
 
-def _lm_tables(lm: NGramPhoneLM):
+def _lm_tables(lm):
     """(probs [NS,P], final [NS], next_state [NS,P], hist_of_state,
-    bos_state) of the n-gram LM FSA."""
-    return (np.asarray(lm.probs, np.float64),
-            np.asarray(lm.final, np.float64),
-            np.asarray(lm.next_state, np.int64),
-            [tuple(h) for h in lm.hists],
-            lm.walk_init())
+    bos_state) for either LM class (bigram PhoneLM is the 2-gram FSA)."""
+    if isinstance(lm, NGramPhoneLM):
+        return (np.asarray(lm.probs, np.float64),
+                np.asarray(lm.final, np.float64),
+                np.asarray(lm.next_state, np.int64),
+                [tuple(h) for h in lm.hists],
+                lm.walk_init())
+    p = lm.num_phones
+    probs = np.asarray(lm.probs, np.float64)  # [P+1, P], row 0 = BOS
+    final = np.asarray(lm.final, np.float64)
+    nxt = np.tile(np.arange(1, p + 1, dtype=np.int64)[None, :], (p + 1, 1))
+    hists = [(q,) for q in range(-1, p)]
+    return probs, final, nxt, hists, 0
+
+
+def _compile_den_fsa_committed(lm, topo: ChainTopology, tree) -> CompiledDenFsa:
+    """Composition variant for +-1 right-context trees (CrossTriphoneTree).
+
+    A phone's forward pdf depends on its SUCCESSOR, so positions carry a
+    *committed* next phone: position = (lm_state_after_q, extra_left, r)
+    means "phone q = last of history is in progress, its successor is
+    committed to be r" (r = -1: q ends the utterance — the wildcard/EOS
+    commitment).  Arc weights pay the successor commitment probability
+    P(r' | s·r) at commitment time, so every path's weight telescopes to
+    the ordinary LM path probability; including the EOS-mass commitment
+    (-1) makes each row exactly stochastic with no renormalization.
+    Wildcard positions restart from the BOS distribution (utterance
+    concatenation, the same chunk-interior semantics as the left-context
+    composition's EOS redistribution).  The equivalent of Kaldi's
+    C-transducer delayed-symbol composition in `chain-den-graph.cc` +
+    `context-fst.cc`.
+    """
+    p_count = lm.num_phones
+    if topo.num_phones != p_count:
+        raise ValueError("phone count mismatch between LM and topology")
+    a = float(topo.self_loop_prob)
+    probs, lm_final, nxt, hists, bos = _lm_tables(lm)
+    lm_final = np.maximum(lm_final, 1e-8)  # wildcard commitment weight floor
+
+    pos_key: Dict[tuple, int] = {}
+    pos_list: List[tuple] = []  # (lm_state, extra_left, committed_r)
+
+    def pos_id(key) -> int:
+        i = pos_key.get(key)
+        if i is None:
+            i = pos_key[key] = len(pos_list)
+            pos_list.append(key)
+        return i
+
+    def dest_key(s2, full_left: tuple, r_new: int) -> tuple:
+        """extra carries the left phone when the LM history is too short."""
+        h2 = hists[s2]
+        need = max(0, 1 - len(h2))
+        e2 = full_left[len(full_left) - 1:] if need else ()
+        return (s2, e2, r_new)
+
+    start_id = pos_id((bos, (), -1))
+    out_arcs: List[List[Tuple[int, int, float]]] = []
+    enter_pdfs: List[List[int]] = []
+    queue = [start_id]
+    head = 0
+    while head < len(queue):
+        src = queue[head]
+        head += 1
+        while len(out_arcs) < len(pos_list):
+            out_arcs.append(None)
+            enter_pdfs.append([])
+        s, extra, r = pos_list[src]
+        fc = tuple(extra) + tuple(h for h in hists[s] if h != BOS)
+        cur = fc[-1] if fc else -1  # phone in progress (left ctx of next)
+        arcs = []
+
+        def commit_arcs(s2, consumed: int, left: int, scale: float):
+            """All successor commitments after consuming ``consumed``."""
+            out = []
+            for r2 in range(p_count):
+                w = scale * float(probs[s2, r2])
+                if w <= 0.0:
+                    continue
+                out.append((dest_key(s2, (consumed,), r2), consumed, left,
+                            r2, w))
+            w_end = scale * float(lm_final[s2])
+            if w_end > 0.0:
+                out.append((dest_key(s2, (consumed,), -1), consumed, left,
+                            -1, w_end))
+            return out
+
+        if r != -1:
+            # consume the committed phone r, choose its successor
+            s2 = int(nxt[s, r])
+            raw = commit_arcs(s2, r, cur, 1.0)
+        else:
+            # wildcard: current phone ended the utterance; restart from BOS
+            raw = []
+            norm = max(1.0 - float(lm_final[bos]), 1e-8)
+            for q in range(p_count):
+                wq = float(probs[bos, q]) / norm
+                if wq <= 0.0:
+                    continue
+                raw.extend(commit_arcs(int(nxt[bos, q]), q, -1, wq))
+        for key2, consumed, left, r2, w in raw:
+            new = key2 not in pos_key
+            d = pos_id(key2)
+            if new:
+                queue.append(d)
+            pdf = int(tree.forward_pdf_lr(consumed, left, r2))
+            while len(enter_pdfs) < len(pos_list):
+                out_arcs.append(None)
+                enter_pdfs.append([])
+            if pdf not in enter_pdfs[d]:
+                enter_pdfs[d].append(pdf)
+            # walk key: wildcard sources need the consumed phone too
+            wk = (src, consumed, r2) if r == -1 else (src, r2)
+            arcs.append((d, pdf, (1.0 - a) * w, wk))
+        out_arcs[src] = arcs
+
+    npos = len(pos_list)
+    seg_bounds = np.zeros((npos + 1,), np.int32)
+    enter_state: Dict[Tuple[int, int], int] = {}
+    loop_state: Dict[int, int] = {}
+    state_pdf: List[int] = []
+    sid = 0
+    for pid in range(npos):
+        seg_bounds[pid] = sid
+        s, extra, r = pos_list[pid]
+        fc = tuple(extra) + tuple(h for h in hists[s] if h != BOS)
+        for pdf in sorted(enter_pdfs[pid]):
+            enter_state[(pid, pdf)] = sid
+            state_pdf.append(pdf)
+            sid += 1
+        if fc:
+            loop_state[pid] = sid
+            state_pdf.append(int(tree.self_loop_pdf(fc[-1])))
+            sid += 1
+    seg_bounds[npos] = sid
+    num_states = sid
+
+    arc_dst: List[int] = []
+    arc_src_pos: List[int] = []
+    arc_w: List[float] = []
+    pos_trans = {}
+    for pid in range(npos):
+        lp = loop_state.get(pid)
+        if lp is not None:
+            arc_dst.append(lp)
+            arc_src_pos.append(pid)
+            arc_w.append(a)
+        for d, pdf, w, wk in out_arcs[pid]:
+            arc_dst.append(enter_state[(d, pdf)])
+            arc_src_pos.append(pid)
+            arc_w.append(w)
+            pos_trans[wk] = (d, pdf)
+    arc_dst = np.asarray(arc_dst, np.int32)
+    arc_src_pos = np.asarray(arc_src_pos, np.int32)
+    arc_w = np.asarray(arc_w, np.float32)
+
+    # stationary init, iteration-averaged (fsa.stationary_init semantics)
+    w64 = arc_w.astype(np.float64)
+    alpha = np.zeros((num_states,), np.float64)
+    for d, pdf, w, _wk in out_arcs[start_id]:
+        alpha[enter_state[(d, pdf)]] += w
+    alpha /= max(alpha.sum(), 1e-30)
+    acc = alpha.copy()
+    for _ in range(100):
+        beta = np.add.reduceat(
+            np.concatenate([alpha, [0.0]]),
+            np.minimum(seg_bounds[:-1], num_states).astype(np.int64),
+        )
+        empty = seg_bounds[:-1] == seg_bounds[1:]
+        beta = np.where(empty, 0.0, beta[: npos])
+        nxt_alpha = np.zeros((num_states,), np.float64)
+        np.add.at(nxt_alpha, arc_dst, beta[arc_src_pos] * w64)
+        tot = nxt_alpha.sum()
+        if tot <= 0:
+            raise ValueError("denominator FSA has no probability mass")
+        alpha = nxt_alpha / tot
+        acc += alpha
+    init = (acc / acc.sum()).astype(np.float32)
+
+    fsa = CompiledDenFsa(
+        num_positions=npos,
+        num_states=num_states,
+        num_pdfs=tree.num_pdfs,
+        seg_bounds=seg_bounds,
+        state_pdf=np.asarray(state_pdf, np.int32),
+        arc_dst=arc_dst,
+        arc_src_pos=arc_src_pos,
+        arc_w=arc_w,
+        init=init,
+        final=np.ones((num_states,), np.float32),
+        enter_state=enter_state,
+        loop_state=loop_state,
+        start_pos=start_id,
+        pos_trans=pos_trans,
+    )
+    fsa.committed = True
+    # wildcard (EOS-commitment) positions share one identical out-arc list
+    # spanning all consumed-phone classes — the blocked kernel factors them
+    # as a rank-1 broadcast term instead of letting them merge the classes
+    fsa.wildcard_positions = [
+        pid for pid, key in enumerate(pos_list) if key[2] == -1]
+    return fsa
 
 
 def compile_denominator_fsa(lm, topo: ChainTopology, tree) -> CompiledDenFsa:
@@ -478,8 +727,7 @@ def compile_denominator_fsa(lm, topo: ChainTopology, tree) -> CompiledDenFsa:
     rows.
     """
     if getattr(tree, "right_context", 0):
-        raise NotImplementedError(
-            "the committed +-1 composition is not ported yet")
+        return _compile_den_fsa_committed(lm, topo, tree)
     p_count = lm.num_phones
     if topo.num_phones != p_count:
         raise ValueError("phone count mismatch between LM and topology")
@@ -688,11 +936,14 @@ def _build_biphone(lm: PhoneLM, topo: ChainTopology, tree: BiphoneTree) -> State
     return g
 
 
-def random_blocked_graph(rng, c, nsrc, ndpos, r, num_pdfs):
+def random_blocked_graph(rng, c, nsrc, ndpos, r, num_pdfs, groups=0):
     """A random graph in the blocked layout (C superblocks, NSRC source
     and NDPOS enter positions, R enter slots each, num_pdfs pdfs): injective
     perm with pad source slots, row-stochastic W rows, zero columns on
-    unused enter slots.  For the kernels' tests and tools."""
+    unused enter slots; with ``groups`` > 0 a wildcard term of that many
+    groups over a tenth of the source slots, whose W rows then carry half
+    their mass and the group's out-row the other half.  For the kernels'
+    tests and tools."""
     ndp = r * ndpos + nsrc
     cs, cnd = c * nsrc, c * ndpos
     perm = np.full(cs, cnd, np.int64)
@@ -705,6 +956,14 @@ def random_blocked_graph(rng, c, nsrc, ndpos, r, num_pdfs):
     w[:, :, : r * ndpos] *= (rng.rand(r * ndpos) < 0.8)  # unused slots
     w /= np.maximum(w.sum(-1, keepdims=True), 1e-9)
     v = c * ndp
+    sel = vec = None
+    if groups:
+        members = rng.permutation(cs)[: max(groups, cs // 10)]
+        sel = np.zeros((cs, groups), np.float32)
+        sel[members, np.arange(len(members)) % groups] = 1.0
+        w.reshape(cs, ndp)[members] *= 0.5
+        vec = rng.rand(groups, v) * (rng.rand(groups, v) < 0.3)
+        vec = (0.5 * vec / vec.sum(-1, keepdims=True)).astype(np.float32)
     init_v = rng.rand(v) * (w.sum(1).reshape(-1) > 0)
     return BlockedDenGraph(
         w_blocks=w.astype(np.float32), perm=perm.astype(np.int32),
@@ -713,5 +972,5 @@ def random_blocked_graph(rng, c, nsrc, ndpos, r, num_pdfs):
         pdf_virtual=rng.randint(0, num_pdfs, v).astype(np.int32),
         init_virtual=(init_v / init_v.sum()).astype(np.float32),
         final_virtual=np.ones(v, np.float32),
-        bcast_sel=None, bcast_vec=None, enter_pad=r, num_states=v,
+        bcast_sel=sel, bcast_vec=vec, enter_pad=r, num_states=v,
         num_pdfs=num_pdfs)

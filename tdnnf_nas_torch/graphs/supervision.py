@@ -5,9 +5,8 @@ Per-chunk chain numerator supervision: a linear phone graph
 plus a time-varying tolerance allow-mask [T, S] (every phone boundary may
 move by up to +-tol output frames).  Transitions carry the denominator's
 self-loop and phone-LM probabilities, so numerator paths are a
-weight-preserving subset of denominator paths.  Only left-context trees
-are handled here; the +-1 (right-context) branch waits with its
-denominator composition.
+weight-preserving subset of denominator paths, for left-context trees
+and for the +-1 tree of the committed-successor composition.
 """
 
 from __future__ import annotations
@@ -48,16 +47,16 @@ def numerator_graph(
     max_states: int,
     init_ctx=None,
     init_left: tuple = (),
+    next_phone: int = -1,
 ):
     """Linear chain graph over ``phones``, padded to max_states.
 
     Returns (trans, state_pdf, init, final, next_w).  ``init_ctx`` /
     ``init_left``: LM walk state and most-recent-first left phones before
     phones[0] (the true utterance context for chunks cut mid-utterance).
+    ``next_phone``: the utterance's phone after the chunk's last one (-1 =
+    utterance end), which a +-1 tree's last forward pdf and arc need.
     """
-    if getattr(tree, "right_context", 0):
-        raise NotImplementedError(
-            "right-context (+-1) trees are not ported yet")
     n = len(phones)
     s = 2 * n
     if s > max_states:
@@ -72,15 +71,32 @@ def numerator_graph(
     ctx = lm.walk_init() if init_ctx is None else init_ctx
     left: tuple = tuple(init_left)
     tctx = getattr(tree, "context_width", 1) - 1
+    rctx = getattr(tree, "right_context", 0)
     for i, p in enumerate(phones):
         e, l = 2 * i, 2 * i + 1
         _, ctx_after = lm.walk(ctx, p)
-        state_pdf[e] = tree.forward_pdf_ctx(p, left)
+        if rctx:
+            # +-1 tree: the pdf is keyed on the successor (-1 = utterance
+            # end, the den's wildcard/EOS commitment)
+            right = phones[i + 1] if i + 1 < n else next_phone
+            state_pdf[e] = tree.forward_pdf_ctx(p, left, right=int(right))
+        else:
+            state_pdf[e] = tree.forward_pdf_ctx(p, left)
         state_pdf[l] = tree.self_loop_pdf(p)
         for src in (e, l):
             trans[src, l] = a
             if i + 1 < n:
-                wq, _ = lm.walk(ctx_after, phones[i + 1])
+                q = phones[i + 1]
+                wq, ctx2 = lm.walk(ctx_after, q)
+                if rctx:
+                    # committed-successor semantics: the arc entering q
+                    # pays q's OWN successor probability (the den's arc
+                    # weight, den_graph._compile_den_fsa_committed)
+                    commit = phones[i + 2] if i + 2 < n else next_phone
+                    if commit == -1:
+                        wq = max(lm.final_prob(ctx2), 1e-8)
+                    else:
+                        wq, _ = lm.walk(ctx2, int(commit))
                 w = (1.0 - a) * wq
                 trans[src, 2 * (i + 1)] = w
                 next_w[i] = w
@@ -127,6 +143,7 @@ def make_chunk_supervision(
     den_init_seq=None,
     init_ctx=None,
     init_left: tuple = (),
+    next_phone: int = -1,
 ) -> ChunkSupervision:
     """Full numerator supervision for one chunk.
 
@@ -138,10 +155,11 @@ def make_chunk_supervision(
     ``den_init_fn(phone, kind, left_phone)`` of a dense den graph
     (``graphs.den_graph.den_init_lookup``; kind 0 = enter, 1 = loop).
     Without either, init is uniform over the allowed start states.
+    ``next_phone`` is the chunk's true successor (``numerator_graph``).
     """
     trans, state_pdf, init, final, next_w = numerator_graph(
         phones, lm, topo, tree, max_states,
-        init_ctx=init_ctx, init_left=init_left)
+        init_ctx=init_ctx, init_left=init_left, next_phone=next_phone)
     n = len(phones)
     if begins is None:
         mask = np.zeros((num_frames, max_states), dtype=np.float32)

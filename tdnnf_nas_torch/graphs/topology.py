@@ -3,8 +3,7 @@
 The chain topology is Kaldi's 1-state-per-phone HMM with two pdf-classes:
 the *forward* pdf emitted on entry to the phone and the *self-loop* pdf
 emitted on each additional frame.  Trees map (context, phone, pdf-class)
--> pdf id.  The +-1 ``CrossTriphoneTree`` is not ported yet (its committed
-denominator composition waits with it).
+-> pdf id.
 """
 
 from __future__ import annotations
@@ -75,6 +74,41 @@ class BiphoneTree:
 
     def forward_pdf_ctx(self, phone: int, left=()) -> int:
         return self.forward_pdf(phone, left[0] if len(left) else -1)
+
+    def self_loop_pdf(self, phone: int) -> int:
+        return self._n_fwd + phone
+
+
+class CrossTriphoneTree:
+    """Classic +-1 triphone tree: context window [l, p, r] (one LEFT and
+    one RIGHT phone), the shape of the reference's ``tri5_7d`` tree.
+
+    A phone's forward pdf is known only once its successor is: the
+    denominator composition commits to the successor
+    (``den_graph.compile_denominator_fsa``), the numerator reads it off
+    the phone sequence, and decode graphs use the within-pronunciation
+    successor (word-final phones take the r = -1 class).
+    ``forward_pdf_lr(p, l, r)`` looks up a flat [P, P+1, P+1] table (-1 =
+    BOS/EOS/unknown in either slot); self-loop pdfs per phone.
+    """
+
+    right_context = 1
+
+    def __init__(self, num_phones: int, fwd_table, n_fwd: int):
+        self.num_phones = num_phones
+        self.context_width = 2  # LEFT window incl. center (l, p)
+        self._fwd_table = np.asarray(fwd_table, np.int64).reshape(
+            num_phones, num_phones + 1, num_phones + 1)
+        self._n_fwd = int(n_fwd)
+        self.num_pdfs = self._n_fwd + num_phones
+
+    def forward_pdf_lr(self, phone: int, left_phone: int = -1,
+                       right_phone: int = -1) -> int:
+        return int(self._fwd_table[phone, left_phone + 1, right_phone + 1])
+
+    def forward_pdf_ctx(self, phone: int, left=(), right: int = -1) -> int:
+        l1 = left[0] if len(left) else -1
+        return self.forward_pdf_lr(phone, l1, right)
 
     def self_loop_pdf(self, phone: int) -> int:
         return self._n_fwd + phone

@@ -1,11 +1,12 @@
-"""Numpy copy of ``tdnnf_nas_tpu.graphs.tree_cluster`` (left-2 tree build).
+"""Numpy copy of ``tdnnf_nas_tpu.graphs.tree_cluster`` (tree builds).
 
-Likelihood-clustered phonetic-context tree, the ``build_tree.sh``
+Likelihood-clustered phonetic-context trees, the ``build_tree.sh``
 equivalent: accumulate diagonal-Gaussian sufficient statistics per seen
-(phone, l1, l2) forward state from alignments, then greedily merge, within
-each central phone, the pair of clusters with the smallest log-likelihood
-loss until the forward-leaf budget is met.  Only the left-2 triphone path
-of the slice is copied here.
+forward state from alignments, then greedily merge, within each central
+phone, the pair of clusters with the smallest log-likelihood loss until
+the forward-leaf budget is met.  Three context windows share the
+clustering: the biphone (l, p), the left-2 triphone (l2, l1, p) and the
++-1 triphone (l, p, r) of the reference's ``tri5_7d`` tree.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from tdnnf_nas_torch.graphs.topology import TriphoneTree
+from tdnnf_nas_torch.graphs.topology import (BiphoneTree, CrossTriphoneTree,
+                                             TriphoneTree)
 
 _VAR_FLOOR = 1e-4
 
@@ -37,6 +39,32 @@ class TreeStats:
         return self.counts.shape[0]
 
 
+def accumulate_tree_stats(
+    feats: Sequence[np.ndarray],
+    phone_seqs: Sequence[Sequence[int]],
+    begins: Sequence[Sequence[int]],
+    num_phones: int,
+    frame_subsampling_factor: int = 1,
+) -> TreeStats:
+    """Per-biphone forward-frame Gaussian stats from alignments: feats[i]
+    [T, D] at the input rate, begins[i] the output-rate phone starts; each
+    phone contributes the feature frame at its start."""
+    d = feats[0].shape[-1]
+    counts = np.zeros((num_phones, num_phones + 1), np.float64)
+    sums = np.zeros((num_phones, num_phones + 1, d), np.float64)
+    sumsqs = np.zeros((num_phones, num_phones + 1, d), np.float64)
+    for x, phones, bg in zip(feats, phone_seqs, begins):
+        x = np.asarray(x, np.float64)
+        left = -1
+        for j, p in enumerate(phones):
+            t = min(int(bg[j]) * frame_subsampling_factor, len(x) - 1)
+            f = x[t]
+            counts[p, left + 1] += 1.0
+            sums[p, left + 1] += f
+            sumsqs[p, left + 1] += f * f
+            left = p
+    return TreeStats(counts, sums, sumsqs)
+
 
 def _loglike(n, s, ss):
     """Optimal diagonal-Gaussian data log-likelihood of a stats cluster."""
@@ -47,6 +75,30 @@ def _loglike(n, s, ss):
     d = s.shape[-1]
     return -0.5 * n * (d * math.log(2.0 * math.pi * math.e)
                        + float(np.sum(np.log(var))))
+
+
+class ClusteredBiphoneTree(BiphoneTree):
+    """BiphoneTree whose forward-pdf table came from likelihood clustering."""
+
+    def __init__(self, num_phones: int, fwd_table: np.ndarray, n_fwd: int):
+        self.num_phones = num_phones
+        self.context_width = 2
+        self._fwd_table = np.asarray(fwd_table, np.int64)
+        self._n_fwd = int(n_fwd)
+        self.num_pdfs = self._n_fwd + num_phones
+
+
+def build_clustered_tree(
+    stats: TreeStats,
+    num_leaves: int,
+    min_count: float = 1.0,
+) -> ClusteredBiphoneTree:
+    """Agglomerative likelihood clustering of biphone forward states;
+    num_leaves caps the FORWARD pdf count (plus one self-loop pdf per
+    phone)."""
+    fwd_table, n_fwd = _cluster_contexts(
+        stats.counts, stats.sums, stats.sumsqs, num_leaves, min_count)
+    return ClusteredBiphoneTree(stats.num_phones, fwd_table, n_fwd)
 
 
 def _cluster_contexts(
@@ -286,3 +338,65 @@ def build_clustered_triphone_tree(
         stats.sumsqs.reshape(p, c1 * c2, d),
         num_leaves, min_count, ctx_shape=(c1, c2))
     return TriphoneTree(p, table, n_fwd)
+
+
+def accumulate_cross_triphone_stats(
+    feats: Sequence[np.ndarray],
+    phone_seqs: Sequence[Sequence[int]],
+    begins: Sequence[Sequence[int]],
+    num_phones: int,
+    frame_subsampling_factor: int = 1,
+) -> TriphoneStats:
+    """Per-(p, l, r) forward-frame Gaussian stats, the +-1 triphone window
+    (index 0 == BOS/EOS/-1 in either slot), in the TriphoneStats container
+    (axis 1 = left, axis 2 = right)."""
+    d = feats[0].shape[-1]
+    counts = np.zeros((num_phones, num_phones + 1, num_phones + 1), np.float64)
+    sums = np.zeros((num_phones, num_phones + 1, num_phones + 1, d), np.float64)
+    sumsqs = np.zeros_like(sums)
+    for x, phones, bg in zip(feats, phone_seqs, begins):
+        x = np.asarray(x, np.float64)
+        n = len(phones)
+        for j, p in enumerate(phones):
+            t = min(int(bg[j]) * frame_subsampling_factor, len(x) - 1)
+            f = x[t]
+            l = phones[j - 1] if j > 0 else -1
+            r = phones[j + 1] if j + 1 < n else -1
+            counts[p, l + 1, r + 1] += 1.0
+            sums[p, l + 1, r + 1] += f
+            sumsqs[p, l + 1, r + 1] += f * f
+    return TriphoneStats(counts, sums, sumsqs)
+
+
+def build_clustered_cross_triphone_tree(
+    stats: TriphoneStats,
+    num_leaves: int,
+    min_count: float = 1.0,
+) -> CrossTriphoneTree:
+    """Likelihood-clustered +-1 triphone tree (stats from
+    ``accumulate_cross_triphone_stats``)."""
+    p, c1, c2 = stats.counts.shape
+    d = stats.sums.shape[-1]
+    table, n_fwd = _cluster_contexts(
+        stats.counts.reshape(p, c1 * c2),
+        stats.sums.reshape(p, c1 * c2, d),
+        stats.sumsqs.reshape(p, c1 * c2, d),
+        num_leaves, min_count, ctx_shape=(c1, c2))
+    return CrossTriphoneTree(p, table, n_fwd)
+
+
+def build_tree_from_corpus(
+    utts,
+    phone_seqs: Sequence[Sequence[int]],
+    num_phones: int,
+    num_leaves: int,
+    frame_subsampling_factor: int = 1,
+    min_count: float = 1.0,
+) -> ClusteredBiphoneTree:
+    """One-call biphone tree build from aligned utterances (the
+    ``build_tree.sh`` equivalent)."""
+    stats = accumulate_tree_stats(
+        [u.feats for u in utts], phone_seqs, [u.begins for u in utts],
+        num_phones, frame_subsampling_factor,
+    )
+    return build_clustered_tree(stats, num_leaves, min_count=min_count)

@@ -6,9 +6,12 @@ The forward scan and its exact adjoint replace the Pallas pair
 ``_blocked_score_core`` (``tdnnf_nas_tpu/ops/fwdbwd.py``) computes.  The
 kernels live in ``csrc/blocked_den.cu``; the source note there says what
 bounds them on an H100 (about 1.3 GFLOP of float32-accurate block product
-per flagship frame against a 40.5 MB W that fits L2) and how they are laid
-out: one persistent cooperative launch per scan, the block product as
-3xTF32 on the tensor cores.
+per flagship frame against a 40.5 MB W that fits L2; a committed +-1
+graph's W of 136.8 MB does not) and how they are laid out: one persistent
+cooperative launch per scan, the block product as 3xTF32 on the tensor
+cores, and the rank-R wildcard term of committed graphs as per-group sums
+(``_wildcard``: each source slot's group index and the groups' out-rows,
+made once per graph).
 
 Build: at first use, by ``ops/cuda_build.py`` (nvcc for sm_90a into the
 git-ignored ``tdnnf_nas_torch/_build/``, keyed on a hash of the source),
@@ -39,6 +42,9 @@ from tdnnf_nas_torch.ops.cuda_build import ptr as _ptr
 
 _TINY = 1e-30
 _SRC = cuda_build.CSRC / "blocked_den.cu"
+# wildcard groups the kernels take (kMaxR in the source; a card test holds
+# the two equal through blocked_den_max_groups)
+MAX_WILDCARD_GROUPS = 4
 
 
 # ------------------------------------------------------------ plain versions
@@ -183,11 +189,11 @@ def _split_bounds(ndp: int, splits: int):
 
 def blocked_scan_fwd_emulated(obs_virtual: torch.Tensor, g, leaky: float):
     """The forward kernel's arithmetic: deferred normalization (beta from
-    the unnormalized alpha, divided by the scale) and 3xTF32 block
-    products.  Same contract as :func:`blocked_scan_fwd_plain`; refuses a
-    wildcard term, as the kernels do."""
-    if g.bcast_sel is not None:
-        raise ValueError("the kernels have no wildcard (bcast) term")
+    the unnormalized alpha, divided by the scale), 3xTF32 block products
+    and, on a wildcard graph, the group sums of beta times the groups'
+    out-rows in float32.  Same contract as :func:`blocked_scan_fwd_plain`;
+    refuses a wildcard term the kernels cannot take (``_wildcard``)."""
+    _wildcard(g)
     b, t, v = obs_virtual.shape
     c, nsrc, ndp, _, _ = _dims(g)
     obs = obs_virtual.float()
@@ -203,7 +209,10 @@ def blocked_scan_fwd_emulated(obs_virtual: torch.Tensor, g, leaky: float):
             beta = beta + leaky * g.init_pos[None, :]
         prod = split_tf32_matmul(beta.reshape(b, c, nsrc).transpose(0, 1),
                                  g.w_blocks)
-        a = prod.transpose(0, 1).reshape(b, v) * obs[:, ti]
+        a = prod.transpose(0, 1).reshape(b, v)
+        if g.bcast_sel is not None:
+            a = a + (beta @ g.bcast_sel) @ g.bcast_vec
+        a = a * obs[:, ti]
     cn = torch.clamp(a.sum(dim=-1), min=_TINY)
     alphas.append(a * (1.0 / cn)[:, None])
     cs.append(cn)
@@ -220,9 +229,11 @@ def blocked_scan_bwd_emulated(obs_virtual: torch.Tensor, g,
     sums over d (3xTF32 each), and the row dot g_t . alpha_t taken as
     sum_j u[j] * beta0_t[j] from the partials (beta0_t the forward's
     gather of alpha_t without leaky), which equals it because perm_inv
-    inverts perm.  Same contract as :func:`blocked_scan_bwd_plain`."""
-    if g.bcast_sel is not None:
-        raise ValueError("the kernels have no wildcard (bcast) term")
+    inverts perm.  On a wildcard graph z = v @ vec^T joins each member's
+    u, and the dot gains z . (beta0 @ sel), the group sums of beta0.  Same
+    contract as :func:`blocked_scan_bwd_plain`; refuses what the forward
+    refuses."""
+    _wildcard(g)
     b, t, v = obs_virtual.shape
     c, nsrc, ndp, _, _ = _dims(g)
     gb = gbar.float()[:, None]
@@ -249,6 +260,10 @@ def blocked_scan_bwd_emulated(obs_virtual: torch.Tensor, g,
             up = up.transpose(0, 1).reshape(b, c * nsrc)
             u = u + up
             dot = dot + (up * beta0).sum(-1, keepdim=True)
+        if g.bcast_sel is not None:
+            z = vcar @ g.bcast_vec.T
+            dot = dot + (z * (beta0 @ g.bcast_sel)).sum(-1, keepdim=True)
+            u = u + z @ g.bcast_sel.T
         bar = _assemble(u, g) - dot + gb
         grads.append(g_obs_frame(alphas[ti], bar, obs[:, ti]))
         vcar = (bar * (1.0 / cs[ti])[:, None]) * obs[:, ti]
@@ -263,16 +278,18 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load(_SRC)
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
-    lib.blocked_den_fwd_scratch.argtypes = [i] * 4
+    lib.blocked_den_fwd_scratch.argtypes = [i] * 5
     lib.blocked_den_fwd_scratch.restype = ll
+    lib.blocked_den_max_groups.argtypes = []
+    lib.blocked_den_max_groups.restype = i
     lib.blocked_den_bwd_splits.argtypes = [i] * 4
     lib.blocked_den_bwd_splits.restype = i
-    lib.blocked_den_bwd_scratch.argtypes = [i] * 5
+    lib.blocked_den_bwd_scratch.argtypes = [i] * 6
     lib.blocked_den_bwd_scratch.restype = ll
-    lib.blocked_den_fwd.argtypes = ([p, i, p, p, p, p, p, f] + [i] * 7
+    lib.blocked_den_fwd.argtypes = ([p, i, p, p, p, p, p, p, p, f] + [i] * 8
                                     + [p] * 4 + [p])
     lib.blocked_den_fwd.restype = i
-    lib.blocked_den_bwd.argtypes = ([p, i, p, p, p, p, p, p, p] + [i] * 8
+    lib.blocked_den_bwd.argtypes = ([p, i] + [p] * 9 + [i] * 9
                                     + [p] * 2 + [p])
     lib.blocked_den_bwd.restype = i
     return lib
@@ -306,10 +323,44 @@ def _w_rows16(g) -> torch.Tensor:
     return padded
 
 
+def _wildcard(g):
+    """(gid, vec, R) of the graph's wildcard term for the kernels: gid
+    [C*NSRC] int32, each source slot's group (-1 = none), read off the 0/1
+    ``bcast_sel``; vec [R, V] float32, the groups' out-rows; R the group
+    count.  (None, None, 0) without a wildcard term.  Made once per graph
+    and ``bcast_sel`` version, kept on the graph.  Raises where the kernels
+    cannot take the term: more than ``MAX_WILDCARD_GROUPS`` groups, or a
+    ``bcast_sel`` that is not a 0/1 matrix with at most one group a
+    slot."""
+    sel = g.bcast_sel
+    if sel is None:
+        return None, None, 0
+    cached = g.__dict__.get("_wildcard")
+    if cached is not None and cached[0] is sel and cached[1] == sel._version:
+        return cached[2]
+    c, nsrc, ndp = g.w_blocks.shape
+    r = sel.shape[1]
+    if r > MAX_WILDCARD_GROUPS:
+        raise ValueError(f"the blocked-den kernels take at most "
+                         f"{MAX_WILDCARD_GROUPS} wildcard groups; this graph "
+                         f"has R={r}")
+    if (sel.shape[0] != c * nsrc or g.bcast_vec is None
+            or g.bcast_vec.shape != (r, c * ndp)):
+        raise ValueError(f"bcast_sel {tuple(sel.shape)} / bcast_vec do not "
+                         f"match the graph {(c, nsrc, ndp)}")
+    if not bool(((sel == 0) | (sel == 1)).all()) or bool(
+            (sel.sum(1) > 1).any()):
+        raise ValueError("bcast_sel must be 0/1 with at most one group a "
+                         "source slot")
+    gid = torch.where(sel.sum(1) > 0, sel.argmax(1),
+                      torch.full_like(sel[:, 0], -1, dtype=torch.long))
+    out = (gid.to(torch.int32).contiguous(),
+           g.bcast_vec.to(torch.float32).contiguous(), r)
+    g.__dict__["_wildcard"] = (sel, sel._version, out)
+    return out
+
+
 def _check_cuda_inputs(obs_virtual: torch.Tensor, g) -> None:
-    if g.bcast_sel is not None:
-        raise ValueError("the CUDA blocked-den kernels have no wildcard "
-                         "(bcast) term; this graph needs one")
     if obs_virtual.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"obs must be float32 or bfloat16, got "
                         f"{obs_virtual.dtype}")
@@ -327,11 +378,19 @@ def _check_cuda_inputs(obs_virtual: torch.Tensor, g) -> None:
                         ("perm_inv", g.perm_inv, torch.int32),
                         ("init_pos", g.init_pos, torch.float32),
                         ("init_virtual", g.init_virtual, torch.float32),
-                        ("final_virtual", g.final_virtual, torch.float32)):
+                        ("final_virtual", g.final_virtual, torch.float32),
+                        ("bcast_sel", g.bcast_sel, torch.float32),
+                        ("bcast_vec", g.bcast_vec, torch.float32)):
+        if x is None and name.startswith("bcast"):
+            continue
         if (x.device != obs_virtual.device or x.dtype != dt
                 or not x.is_contiguous()):
             raise ValueError(f"graph tensor {name} must be a contiguous {dt} "
                              f"tensor on {obs_virtual.device}")
+
+
+def _opt_ptr(x):
+    return None if x is None else _ptr(x)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -350,7 +409,8 @@ def blocked_den_fwd_cuda(obs_virtual: torch.Tensor, g, leaky: float):
     alphas = torch.empty((t, b, v), dtype=f32, device=dev)
     cs = torch.empty((t, b), dtype=f32, device=dev)
     logz = torch.empty((b,), dtype=f32, device=dev)
-    scratch = torch.empty((lib.blocked_den_fwd_scratch(b, c, nsrc, ndp),),
+    gid, vec, rw = _wildcard(g)
+    scratch = torch.empty((lib.blocked_den_fwd_scratch(b, c, nsrc, ndp, rw),),
                           dtype=f32, device=dev)
     w = _w_rows16(g)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -358,10 +418,10 @@ def blocked_den_fwd_cuda(obs_virtual: torch.Tensor, g, leaky: float):
         rc = lib.blocked_den_fwd(
             _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
             _ptr(w), _ptr(g.perm), _ptr(g.init_pos),
-            _ptr(g.init_virtual), _ptr(g.final_virtual), float(leaky),
-            b, t, c, nsrc, ndp, g.enter_pad, w.shape[2],
-            _ptr(alphas), _ptr(cs), _ptr(logz), _ptr(scratch),
-            ctypes.c_void_p(stream))
+            _ptr(g.init_virtual), _ptr(g.final_virtual), _opt_ptr(gid),
+            _opt_ptr(vec), float(leaky), b, t, c, nsrc, ndp, g.enter_pad,
+            w.shape[2], rw, _ptr(alphas), _ptr(cs), _ptr(logz),
+            _ptr(scratch), ctypes.c_void_p(stream))
     _raise_on(rc, "blocked_den_fwd")
     blocked_den_fwd_cuda.launches += 1
     return logz, alphas, cs
@@ -385,8 +445,9 @@ def blocked_den_bwd_cuda(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
     grad = torch.empty_like(obs_virtual)
     splits = _bwd_splits(dev.index if dev.index is not None
                          else torch.cuda.current_device(), b, c, nsrc, ndp)
+    gid, vec, rw = _wildcard(g)
     scratch = torch.empty(
-        (lib.blocked_den_bwd_scratch(b, c, nsrc, ndp, splits),),
+        (lib.blocked_den_bwd_scratch(b, c, nsrc, ndp, splits, rw),),
         dtype=torch.float32, device=dev)
     w = _w_rows16(g)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -395,8 +456,9 @@ def blocked_den_bwd_cuda(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
             _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
             _ptr(w), _ptr(g.perm), _ptr(g.perm_inv),
             _ptr(g.final_virtual), _ptr(alphas), _ptr(cs), _ptr(gbar),
-            b, t, c, nsrc, ndp, g.enter_pad, w.shape[2], splits,
-            _ptr(grad), _ptr(scratch), ctypes.c_void_p(stream))
+            _opt_ptr(gid), _opt_ptr(vec), b, t, c, nsrc, ndp, g.enter_pad,
+            w.shape[2], splits, rw, _ptr(grad), _ptr(scratch),
+            ctypes.c_void_p(stream))
     _raise_on(rc, "blocked_den_bwd")
     blocked_den_bwd_cuda.launches += 1
     return grad

@@ -1,13 +1,16 @@
 """Port of ``tdnnf_nas_tpu.recipes.chain_recipes``: the reference's shell
 stages as Python functions.
 
+  bootstrap_alignments_gmm
+                    the GMM ladder's alignments (``gmm/``, on the card)
+                    in place of the utterances' own
   prepare_data      estimates the phone LM, builds the denominator graph
                     and splits train/dev 95/5: a bigram LM with a CI or
                     left-biphone tree gives the dense den graph (a
                     ``graphs.fsa.StateGraph`` and its
-                    ``ops.fwdbwd.DenGraphArrays``); a higher-order LM or a
-                    left-2 tree gives the composed den FSA in superblocked
-                    form.  ``DataBundle.egs`` cuts the chunks for a model's
+                    ``ops.fwdbwd.DenGraphArrays``); a higher-order LM, a
+                    left-2 or a +-1 tree gives the composed den FSA in
+                    superblocked form.  ``DataBundle.egs`` cuts the chunks for a model's
                     (or supernet's) receptive field.
   train_model       the iteration loop (`steps/nnet3/chain/train.py`),
                     fed by ``batch_iterator`` or a TEGS shard's native
@@ -125,6 +128,29 @@ class DataBundle:
         return chunks
 
 
+def bootstrap_alignments_gmm(utts, phone_seqs, num_phones: int,
+                             speakers=None, ladder_cfg=None,
+                             device=DEFAULT_DEVICE):
+    """Replace the utterances' phone begin/end alignments with GMM-ladder
+    ones (mono -> LDA+MLLT -> SAT/fMLLR, ``gmm/ladder.py``, on ``device``)
+    -- the classical bootstrap of the reference (`run.sh` GMM stages +
+    `Prepare_NAS_data.sh:66-75` fMLLR aligns).
+
+    Mutates and returns ``utts``; also returns the ladder result (model,
+    transforms, diagnostics).
+    """
+    from tdnnf_nas_torch.gmm import GmmLadderConfig, run_gmm_ladder
+
+    dev = resolve_device(device)
+    cfg = ladder_cfg or GmmLadderConfig()
+    res = run_gmm_ladder([u.feats for u in utts], phone_seqs, num_phones,
+                         cfg, speakers=speakers, device=dev)
+    for u, b, e in zip(utts, res.begins, res.ends):
+        u.begins = list(b)
+        u.ends = list(e)
+    return utts, res
+
+
 def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
                  dev_fraction: float = 0.05,
                  phone_lm_order: int = 2,
@@ -135,9 +161,10 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
 
     The 95/5 split mirrors `Prepare_NAS_data.sh:5-7`.  ``phone_lm_order >
     2``, a tree with context_width > 2 or one with a right context takes
-    the composed den FSA and its blocked export, which raises ValueError
-    when it exceeds its size budget (the factored fallback is not ported;
-    the +-1 composition raises NotImplementedError), with its dense
+    the composed den FSA (for a +-1 tree the committed composition, whose
+    blocked export carries the wildcard term) and its blocked export,
+    which raises ValueError when it exceeds its size budget (the factored
+    fallback is not ported), with its dense
     ``StateGraph`` in ``den`` when it has at most ``max_dense_states``
     states (the phone decode's graph); otherwise the bigram LM gives the
     dense den graph.

@@ -4,8 +4,10 @@ The forward and the adjoint each run a whole scan in one persistent
 launch, so a profiler sees one kernel.  This tool builds an instrumented
 copy of ``csrc/blocked_den.cu`` in which block 0 reads ``%globaltimer``
 after every grid barrier, runs both scans at the flagship shape (B=64,
-T=50, C=7, NSRC=538, NDPOS=538, R=4, bf16 obs) on a random blocked graph,
-and prints the mean time of each phase: the forward's product and gather
+T=50, C=7, NSRC=538, NDPOS=538, R=4, bf16 obs) on a random blocked graph
+(``--shape pm1``: at the committed +-1 den's shape of ``chip_smoke.py``
+phase 10, C=22, NSRC=558, NDPOS=559, 430 pdfs, with a one-group wildcard
+term; its rows are read through L2), and prints the mean time of each phase: the forward's product and gather
 phases, the adjoint's product and frame phases.  A phase's time runs from
 one barrier's exit to the next, so it holds the slowest block and one
 barrier.
@@ -17,9 +19,12 @@ that part costs (the outputs are then wrong):
   one_pass     one TF32 product (hi x hi) instead of three;
   no_loads     no copies into the shared-memory ring;
   no_mainloop  no block product at all (epilogue and barrier alone);
-  no_rowpass   no gather or frame phase (barrier alone).
+  no_rowpass   no gather or frame phase (barrier alone);
+  splits_floor the adjoint's d-splits as grid / tiles alone (1 at the
+               +-1 shape), without the fewest-waves choice.
 
 Usage: python -m tdnnf_nas_torch.tools.blocked_den_phases [--variant NAME]
+           [--shape flagship|pm1]
 """
 
 from __future__ import annotations
@@ -65,9 +70,17 @@ VARIANTS = {
          "      if (t < 0) tile_product<false>(p.beta"),
         ("    tile_product<true>(p.vcar",
          "    if (tile < 0) tile_product<true>(p.vcar")],
-    "no_rowpass": [("    fwd_gather(p, t - 1, smem);", ""),
-                   ("    bwd_frame(p, t, smem);", "")],
+    "no_rowpass": [
+        ("    fwd_gather<kL2, kWild>(p, t - 1, smem, &red[0][0]);", ""),
+        ("    bwd_frame<kL2, kWild>(p, t, smem, &red[0][0]);", "")],
+    "splits_floor": [("  if (s < 2) {\n    s = 1;",
+                      "  if (s < 1) {\n    s = 1;")],
 }
+
+
+# (B, T, C, NSRC, NDPOS, R, pdfs, wildcard groups)
+SHAPES = {"flagship": (64, 50, 7, 538, 538, 4, 6034, 0),
+          "pm1": (64, 50, 22, 558, 559, 4, 430, 1)}
 
 
 def instrumented_source(src: str, variant: str) -> str:
@@ -96,6 +109,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", default="base", choices=sorted(VARIANTS))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--shape", default="flagship", choices=sorted(SHAPES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("blocked_den_phases: no CUDA device", file=sys.stderr)
@@ -120,10 +134,10 @@ def main() -> int:
             raise RuntimeError("phases_read failed")
         return np.array(out[: n.value], dtype=np.float64)
 
-    # the random blocked graph of the card tests, at the flagship shape
-    b, t, c, nsrc, ndpos, r, npdf = 64, 50, 7, 538, 538, 4, 6034
+    # the random blocked graph of the card tests, at the chosen shape
+    b, t, c, nsrc, ndpos, r, npdf, groups = SHAPES[args.shape]
     rng = np.random.RandomState(0)
-    host = random_blocked_graph(rng, c, nsrc, ndpos, r, npdf)
+    host = random_blocked_graph(rng, c, nsrc, ndpos, r, npdf, groups=groups)
     v = c * (r * ndpos + nsrc)
     dev = torch.device("cuda", 0)
     g = BlockedDenGraph.from_host(host, dev)
@@ -137,7 +151,8 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(f"variant {args.variant}; B={b} T={t} V={v}, bf16 obs ({gpu})")
+    print(f"variant {args.variant}; shape {args.shape}: B={b} T={t} C={c} "
+          f"NSRC={nsrc} V={v} wildcard groups={groups}, bf16 obs ({gpu})")
 
     _, al, cs = bdc.blocked_den_fwd_cuda(obs_v, g, 0.1)
     runs = {"fwd": lambda: bdc.blocked_den_fwd_cuda(obs_v, g, 0.1),

@@ -1,6 +1,13 @@
-"""Per-speaker LHUC enrollment and adapted decode: stage 7 of
-``scripts/e2e_flagship.py`` (``lhuc_adapt_and_decode``, :468-560 there)
-on the port.
+"""Stages of ``scripts/e2e_flagship.py`` on the port.
+
+``bootstrap_stage`` is its stages 1-2 (:143-167 there): the GMM ladder
+on the card aligns the training utterances, then a likelihood-clustered
+tree is built from those alignments: the left-2 triphone tree the
+reference's flagship uses, or the +-1 triphone tree of its ``tri5_7d``
+recipe.  ``chip_smoke.py`` phase 10 drives the +-1 path.
+
+``lhuc_adapt_and_decode`` is its stage 7 (:468-560 there): per-speaker
+LHUC enrollment and the adapted decode.
 
 For each test speaker, up to 10 of the speaker's training utterances
 are cut into 50-frame chunks and up to 8 batches of 16; 24 SGD steps
@@ -24,13 +31,52 @@ from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.data.egs import EgsConfig, batch_iterator, make_egs
 from tdnnf_nas_torch.decode.beam import beam_decode_sparse
 from tdnnf_nas_torch.decode.scoring import score_corpus
+from tdnnf_nas_torch.graphs.tree_cluster import (
+    accumulate_cross_triphone_stats, accumulate_triphone_stats,
+    build_clustered_cross_triphone_tree, build_clustered_triphone_tree)
 from tdnnf_nas_torch.models.lhuc import adapt_lhuc, apply_model_lhuc
 from tdnnf_nas_torch.models.tdnnf import model_context
-from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
+from tdnnf_nas_torch.recipes.chain_recipes import (bootstrap_alignments_gmm,
+                                                   den_on_device)
 
 # the reference's enrollment batch and batch cap (scripts/e2e_flagship.py:517-528)
 LHUC_BATCH = 16
 LHUC_MAX_BATCHES = 8
+
+
+TREE_KINDS = {
+    # the reference flagship's left-2 tree, and the +-1 tree of tri5_7d
+    "left2": (accumulate_triphone_stats, build_clustered_triphone_tree),
+    "pm1": (accumulate_cross_triphone_stats,
+            build_clustered_cross_triphone_tree),
+}
+
+
+def bootstrap_stage(train, train_phones, num_phones: int, ladder_cfg,
+                    num_leaves: int, tree_kind: str = "left2",
+                    speakers=None, frame_subsampling_factor: int = 3,
+                    device=DEFAULT_DEVICE):
+    """E2e stages 1-2: the GMM ladder on ``device`` replaces the training
+    utterances' begins and ends (``bootstrap_alignments_gmm``), then the
+    ``tree_kind`` tree ("left2" or "pm1") of ``num_leaves`` forward leaves
+    is clustered on the host from the new alignments.  Returns (tree,
+    ladder result, {"gmm": s, "tree": s})."""
+    if tree_kind not in TREE_KINDS:
+        raise ValueError(f"tree_kind must be one of {sorted(TREE_KINDS)}, "
+                         f"got {tree_kind!r}")
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    _, ladder = bootstrap_alignments_gmm(
+        train, train_phones, num_phones,
+        speakers=speakers, ladder_cfg=ladder_cfg, device=dev)
+    t_gmm = time.perf_counter() - t0
+    accumulate, build = TREE_KINDS[tree_kind]
+    t0 = time.perf_counter()
+    stats = accumulate([u.feats for u in train], train_phones,
+                       [u.begins for u in train], num_phones,
+                       frame_subsampling_factor)
+    tree = build(stats, num_leaves=num_leaves)
+    return tree, ladder, {"gmm": t_gmm, "tree": time.perf_counter() - t0}
 
 
 def lhuc_batches(chunks):

@@ -89,6 +89,12 @@ _GRAPHS = {
     "random_t2": (3, 2, lambda rng: random_blocked_graph(rng, 3, 45, 21, 3,
                                                          30)),
     "ngram": (4, 10, lambda rng: _ngram_graph()),
+    # the wildcard (rank-R broadcast) term: random groups, R = 1 and the
+    # kernels' largest R
+    "random_wild1": (4, 7, lambda rng: random_blocked_graph(
+        rng, 2, 60, 30, 3, 40, groups=1)),
+    "random_wild4": (3, 6, lambda rng: random_blocked_graph(
+        rng, 3, 45, 21, 2, 30, groups=bdc.MAX_WILDCARD_GROUPS)),
 }
 
 
@@ -124,10 +130,19 @@ def test_emulated_scans_match_plain(name, obs_dtype):
 
 
 def test_emulated_scans_refuse_wildcard():
+    """A wildcard term the kernels cannot take: more groups than
+    MAX_WILDCARD_GROUPS (the error names R), or a slot in two groups."""
     rng = np.random.RandomState(1)
     host = random_blocked_graph(rng, 1, 8, 4, 2, 5)
-    host.bcast_sel = np.zeros((8, 1), np.float32)
-    host.bcast_vec = np.zeros((1, 16), np.float32)
+    r = bdc.MAX_WILDCARD_GROUPS + 1
+    host.bcast_sel = np.zeros((8, r), np.float32)
+    host.bcast_vec = np.zeros((r, 16), np.float32)
     g = BlockedDenGraph.from_host(host, "cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=f"R={r}"):
+        bdc.blocked_scan_fwd_emulated(torch.rand(1, 3, 16), g, 0.1)
+    host.bcast_sel = np.zeros((8, 2), np.float32)
+    host.bcast_sel[3] = 1.0
+    host.bcast_vec = np.zeros((2, 16), np.float32)
+    g = BlockedDenGraph.from_host(host, "cpu")
+    with pytest.raises(ValueError, match="at most one group"):
         bdc.blocked_scan_fwd_emulated(torch.rand(1, 3, 16), g, 0.1)

@@ -43,10 +43,33 @@ def cuda():
 def test_kernels_match_plain(cuda, shape, obs_dtype):
     """Tolerances: float32 sums in another order (no atomics, so kernel
     runs repeat bit for bit); bf16 obs gradients round to 2^-8 relative."""
+    _match_plain(cuda, shape, obs_dtype, groups=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [
+    # (B, T, C, NSRC, NDPOS, R, P), wildcard groups: small ragged graphs
+    # at R = 1 and the kernels' largest R; the committed +-1 den's shape
+    # (V = 61,512: rows read through L2, not staged), with and without
+    # the term; B past one 64-row tile
+    ((3, 5, 2, 70, 40, 3, 50), 1),
+    ((5, 4, 3, 45, 21, 2, 30), 4),
+    ((130, 3, 3, 70, 40, 3, 50), 2),
+    ((64, 50, 22, 556, 560, 4, 430), 1),
+    ((4, 6, 22, 556, 560, 4, 430), 0),
+])
+def test_kernels_match_plain_wildcard(cuda, shape, groups, obs_dtype):
+    """The wildcard term and the rows too long for shared memory, at the
+    same tolerances as test_kernels_match_plain."""
+    _match_plain(cuda, shape, obs_dtype, groups=groups)
+
+
+def _match_plain(cuda, shape, obs_dtype, groups):
     b, t, c, nsrc, ndpos, r, p = shape
     rng = np.random.RandomState(0)
     g = BlockedDenGraph.from_host(
-        random_blocked_graph(rng, c, nsrc, ndpos, r, p), cuda)
+        random_blocked_graph(rng, c, nsrc, ndpos, r, p, groups=groups), cuda)
     logits = torch.tensor(rng.randn(b, t, p).astype(np.float32) * 2,
                           device=cuda)
     obs = torch.exp(torch.clamp(logits - logits.amax(-1, keepdim=True),
@@ -73,11 +96,16 @@ def test_kernels_match_plain(cuda, shape, obs_dtype):
 
 @pytest.mark.cuda
 def test_kernel_refuses_wildcard_and_cpu_mismatch(cuda):
+    """The kernels refuse more wildcard groups than they take (the error
+    names R); the library's limit is the wrapper's."""
+    assert (bdc._library().blocked_den_max_groups()
+            == bdc.MAX_WILDCARD_GROUPS)
     rng = np.random.RandomState(1)
     host = random_blocked_graph(rng, 1, 8, 4, 2, 5)
-    host.bcast_sel = np.zeros((8, 1), np.float32)
-    host.bcast_vec = np.zeros((1, 16), np.float32)
+    r = bdc.MAX_WILDCARD_GROUPS + 1
+    host.bcast_sel = np.zeros((8, r), np.float32)
+    host.bcast_vec = np.zeros((r, 16), np.float32)
     g = BlockedDenGraph.from_host(host, cuda)
     obs = torch.rand(1, 3, 16, device=cuda)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=f"R={r}"):
         bdc.blocked_den_fwd_cuda(obs, g, 0.1)

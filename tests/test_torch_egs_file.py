@@ -206,9 +206,8 @@ class _PlusMinusOneTree:
 
 def test_prepare_data_right_context_takes_composed_branch(monkeypatch):
     """A bigram LM with a +-1 tree takes the composed den branch, as in the
-    reference (its ``compile_denominator_fsa`` is reached); the port's
-    raises NotImplementedError there until the +-1 composition is ported,
-    where the dense branch would fail in ``forward_pdf``."""
+    reference: both packages reach their ``compile_denominator_fsa``
+    (where the dense branch would fail in ``forward_pdf``)."""
     from tdnnf_nas_tpu.recipes import chain_recipes as jrec
     from tdnnf_nas_torch.data import (SyntheticCorpusConfig,
                                       make_synthetic_corpus)
@@ -227,6 +226,7 @@ def test_prepare_data_right_context_takes_composed_branch(monkeypatch):
     with pytest.raises(Composed):
         jrec.prepare_data(utts, phone_seqs, _PlusMinusOneTree(), topo, 5,
                           phone_lm_order=2)
-    with pytest.raises(NotImplementedError, match="committed"):
+    monkeypatch.setattr(trec, "compile_denominator_fsa", reached)
+    with pytest.raises(Composed):
         trec.prepare_data(utts, phone_seqs, _PlusMinusOneTree(), topo, 5,
                           phone_lm_order=2)

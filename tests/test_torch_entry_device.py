@@ -12,6 +12,8 @@ from tdnnf_nas_torch import convert
 from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tdnnf_nas_torch.data import ivector
 from tdnnf_nas_torch.decode import align, wfst
+from tdnnf_nas_torch.gmm import gmm as gmm_mod
+from tdnnf_nas_torch.gmm import ladder
 from tdnnf_nas_torch.lm import rnnlm
 from tdnnf_nas_torch.models import lhuc, nas, tdnnf
 from tdnnf_nas_torch.recipes import chain_recipes
@@ -51,6 +53,13 @@ _ENTRY_POINTS = {
                               (None,) * 12),
     "rnnlm_params_from_numpy": (convert.rnnlm_params_from_numpy, ({},)),
     "lhuc_from_numpy": (convert.lhuc_from_numpy, ({},)),
+    "run_gmm_ladder": (ladder.run_gmm_ladder, (None, None, None)),
+    "train_mono": (gmm_mod.train_mono, (None, None, None)),
+    "bootstrap_alignments_gmm": (chain_recipes.bootstrap_alignments_gmm,
+                                 (None, None, None)),
+    "bootstrap_stage": (e2e_flagship.bootstrap_stage, (None,) * 5),
+    "am_gmm_from_jax": (convert.am_gmm_from_jax, (None,)),
+    "ladder_result_from_jax": (convert.ladder_result_from_jax, (None,)),
 }
 
 
