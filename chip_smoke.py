@@ -11,7 +11,9 @@ the bigram x left-biphone dense denominator (2,208 states, 2,208 pdfs,
 16,784,684 params), then the two-stage DARTS search against the dense
 den, then the decode path with i-vectors, RNNLM rescoring and LHUC
 speaker adaptation, then the tri5_7d path (GMM ladder, +-1 tree,
-committed den with its wildcard term).  Checks the hand-written CUDA kernels of each path
+committed den with its wildcard term), then the front end, the
+optimizer kinds and the Bayes/GP and CNN-TDNN-F families.  Checks the
+hand-written CUDA kernels of each path
 against their plain PyTorch versions.  Phases, each raising on failure:
 
   0. build both kernel libraries from ``tdnnf_nas_torch/csrc`` (one nvcc
@@ -118,14 +120,36 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      bounds, cuBLAS yardstick); launch counters reset, 20 bf16 steps of
      the flagship 7q (24-dim input, no i-vectors, B = 64, den_obs_bf16):
      objf finite, each blocked kernel once a step, ms/step and the card's
-     idle share over 2 profiled steps.
+     idle share over 2 profiled steps;
+ 11. (``_trainers_phase``, last, on phase 1's blocked den, bundle and
+     batches, kept for it) the remaining trainers, model families and
+     front end: 64 seeded utterances of 8 kHz audio (2-12 s) written as
+     16-bit wavs and read back equal by ``read_wav``; ``featurize_batch``
+     (hires MFCC and fbank, speed 0.9 / 1.0 / 1.1, CMVN) on the card
+     against the CPU (frame counts equal, features within 1e-2; audio-s/s
+     of each); the MFCCs through a compressed ark/scp (within one
+     compression step); SpecAugment's masked share against its
+     expectation; the ``ng`` (12 steps, recomputes at 0 and 10),
+     ``adafactor`` and ``sgd`` + momentum (8 each) optimizer kinds on the
+     flagship (bf16, den_obs_bf16, B = 64; launch counters reset per
+     kind, objf and grad_norm finite, each blocked kernel once a step,
+     ms/step, peak GiB); ``ng``'s update at a recompute step card vs CPU,
+     each held to float64; one float32 ``ng`` step through the kernels
+     against the plain den; the GP TDNN-F (``gptdnnf-layer``) at the
+     flagship's width, 4 steps (chain objective + kl, Adam) and its
+     float32 test-mode forward card vs CPU; the CNN-TDNN-F (conv 32 / 32
+     / 64, out_dim 1,280) on chunks cut with its context, 4 steps, its
+     ConvDARTS variant's gumbel step (the conv_offsets alphas' gradient
+     finite and non-zero), and a float32 forward + grad card vs CPU
+     against float64.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
 three TF32 tensor-core passes ``bound_ms_3xtf32``,
 ``launches_per_scan`` and, for the blocked pair, each of phase 2's
 fields again at LHUC's batch with the suffix ``_b16`` and on phase 10's
-+-1 den with the suffix ``_pm1``), and as its last
++-1 den with the suffix ``_pm1``; the blocked rows' launches include
+phase 11's steps), and as its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
@@ -137,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -854,7 +879,6 @@ def _search_phase(torch, dev, gpu, bundle, g, base, batch_size,
     searched model's TDNN-F config, ``expect_params`` the two supernets'
     parameter counts.  Returns the dense kernels' launches over the
     search's steps, {"fwd": n, "bwd": n}."""
-    import dataclasses
     import tempfile
 
     from tdnnf_nas_torch import convert
@@ -1815,6 +1839,697 @@ def _tri5_7d_phase(torch, dev, gpu):
     return launches, pm1
 
 
+# phase 1's batch and output frames per chunk (150 input frames)
+FLAGSHIP_BATCH, FLAGSHIP_CHUNK = 64, 50
+
+
+def _flagship_setup(dev):
+    """Phase 1, the flagship host setup (bench.py:113-157) through the
+    port's numpy host modules: (utts, phone_seqs, topo, tree, bundle,
+    model_cfg, chunks, iv_rng, host_batches, blocked den on ``dev``)."""
+    from tdnnf_nas_torch.data import (SyntheticCorpusConfig, batch_iterator,
+                                      make_synthetic_corpus)
+    from tdnnf_nas_torch.graphs import (accumulate_triphone_stats,
+                                        build_clustered_triphone_tree)
+    from tdnnf_nas_torch.models import TdnnfModelConfig
+    from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
+    from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
+
+    t0 = time.perf_counter()
+    num_phones = 46
+    corpus_cfg = SyntheticCorpusConfig(
+        num_utts=768, num_phones=num_phones, feat_dim=40, min_phones=10,
+        max_phones=30, mean_dur=4.0, context_shift=1.0, seed=0)
+    utts, phone_seqs, _, topo = make_synthetic_corpus(corpus_cfg)
+    stats = accumulate_triphone_stats(
+        [u.feats for u in utts], phone_seqs, [u.begins for u in utts],
+        num_phones, corpus_cfg.frame_subsampling_factor)
+    tree = build_clustered_triphone_tree(stats, num_leaves=6034 - num_phones)
+    bundle = prepare_data(utts, phone_seqs, tree, topo, num_phones,
+                          phone_lm_order=4, num_extra_lm_states=2000)
+    host_den = bundle.den_arrays
+    model_cfg = TdnnfModelConfig(num_pdfs=tree.num_pdfs)
+    chunks = bundle.egs(model_cfg, chunk_width=FLAGSHIP_CHUNK,
+                        max_phones_per_chunk=40)
+    iv_rng = np.random.RandomState(3)
+    host_batches = []
+    for b in batch_iterator(chunks, batch_size=FLAGSHIP_BATCH,
+                            rng=np.random.RandomState(0), drop_last=False):
+        if len(host_batches) >= 8 or b["feats"].shape[0] != FLAGSHIP_BATCH:
+            break
+        b["ivectors"] = iv_rng.randn(FLAGSHIP_BATCH, model_cfg.ivector_dim
+                                     ).astype(np.float32)
+        host_batches.append(b)
+    c, nsrc, ndp = host_den.shape
+    print(f"[setup] {time.perf_counter() - t0:.1f} s: pdfs={tree.num_pdfs} "
+          f"den_states={host_den.num_states} w_blocks=[{c},{nsrc},{ndp}] "
+          f"R={host_den.enter_pad} chunks={len(chunks)} "
+          f"batches={len(host_batches)} feats="
+          f"{list(host_batches[0]['feats'].shape)}", flush=True)
+    _check(host_den.num_states == 10271, "10,271 den states")
+    _check(tree.num_pdfs == 6034, "6,034 pdfs")
+    _check(host_den.bcast_sel is None, "no wildcard term")
+    _check(len(host_batches) == 8, "8 full batches")
+    return (utts, phone_seqs, topo, tree, bundle, model_cfg, chunks, iv_rng,
+            host_batches, BlockedDenGraph.from_host(host_den, dev))
+
+
+
+# Phase 11a's audio: 64 utterances of 8 kHz audio, 2-12 s (the length
+# spread of Switchboard segments), made from a seed
+FRONTEND_UTTS, FRONTEND_RATE = 64, 8000
+
+
+def _synthetic_audio(n_utts: int, seed: int):
+    """int16-range float32 waveforms: two or three tones under syllable-
+    rate envelopes, plus noise."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_utts):
+        n = int(rng.uniform(2.0, 12.0) * FRONTEND_RATE)
+        t = np.arange(n) / FRONTEND_RATE
+        x = np.zeros(n)
+        for _ in range(rng.randint(2, 4)):
+            env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 6) * t
+                                     + rng.uniform(0, 2 * np.pi))
+            x += (rng.uniform(1000, 5000) * env
+                  * np.sin(2 * np.pi * rng.uniform(100, 3500) * t))
+        x += rng.randn(n) * rng.uniform(50, 400)
+        out.append(np.clip(np.round(x), -32768, 32767).astype(np.float32))
+    return out
+
+
+def _specaug_expected_share(t: int, f: int, cfg) -> float:
+    """E[masked share] of spec_augment on a [T, F] map: a position stays
+    with probability q^M per axis, q the chance that one mask (width
+    uniform in [0, W], start uniform in [0, max(size - width, 1))) misses
+    it; the axes are independent."""
+    def keep(size, width_max, n_masks):
+        miss = np.zeros(size)
+        for w in range(width_max + 1):
+            hi = max(size - w, 1)
+            hit = np.zeros(size + 1)
+            np.add.at(hit, np.arange(hi), 1.0)      # mask start
+            np.add.at(hit, np.minimum(np.arange(hi) + w, size), -1.0)
+            miss += 1.0 - np.cumsum(hit)[:size] / hi
+        return np.mean((miss / (width_max + 1)) ** n_masks)
+
+    return 1.0 - (keep(t, cfg.time_mask_width, cfg.num_time_masks)
+                  * keep(f, cfg.freq_mask_width, cfg.num_freq_masks))
+
+
+def _frontend_stage(torch, dev, gpu):
+    """11a: wavs -> read_wav -> featurize_batch (MFCC and fbank, speed
+    0.9 / 1.0 / 1.1, CMVN) on the card against the CPU, a compressed
+    ark/scp round trip, SpecAugment's masked share."""
+    import tempfile
+    import wave
+
+    from tdnnf_nas_torch.data import kaldi_io
+    from tdnnf_nas_torch.data.audio import featurize_batch, read_wav
+    from tdnnf_nas_torch.frontend import FbankConfig, MfccConfig
+    from tdnnf_nas_torch.frontend.specaug import (SpecAugmentConfig,
+                                                  spec_augment)
+
+    wavs = _synthetic_audio(FRONTEND_UTTS, seed=11)
+    audio_s = sum(len(w) for w in wavs) / FRONTEND_RATE
+    with tempfile.TemporaryDirectory() as tmp:
+        read = []
+        for i, w in enumerate(wavs):
+            path = os.path.join(tmp, f"utt{i:03d}.wav")
+            with wave.open(path, "wb") as f:
+                f.setnchannels(1)
+                f.setsampwidth(2)
+                f.setframerate(FRONTEND_RATE)
+                f.writeframes(w.astype("<i2").tobytes())
+            x, sr = read_wav(path)
+            _check(sr == FRONTEND_RATE and np.array_equal(x, w),
+                   "read_wav gives the written samples")
+            read.append(x)
+    print(f"[frontend] {len(wavs)} wavs, {audio_s:.1f} audio-s "
+          f"({min(len(w) for w in wavs) / FRONTEND_RATE:.2f}-"
+          f"{max(len(w) for w in wavs) / FRONTEND_RATE:.2f} s), written "
+          f"as 16-bit wav and read back equal", flush=True)
+    # card vs CPU, no dither: cuFFT against pocketfft and the mel and DCT
+    # products in another order (matmul TF32 off) round differently in
+    # float32.  An FFT's rounding error scales with the frame's whole
+    # power, so a quiet mel band of a loud frame (tones 1e5-1e6 times its
+    # noise floor) carries a relative error of ~1e-4 and its log as much
+    # absolute, which the lifted DCT sums over 40 bands; the features
+    # span ~30 (fbank) to ~200 (MFCC c0): 1e-2 absolute on every valid
+    # frame (1.46e-3 seen on the card)
+    bar = 1e-2
+    mfcc_feats = None
+    for name, cfg, mfcc in (("mfcc", MfccConfig(), True),
+                            ("fbank", FbankConfig(), False)):
+        for speed in (0.9, 1.0, 1.1):
+            run = lambda device: featurize_batch(
+                read, cfg, mfcc=mfcc, speed_factor=speed, device=device)
+            run(dev)  # warm-up (cuFFT plans)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats, counts = run(dev)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref, ref_counts = run("cpu")
+            t_cpu = time.perf_counter() - t0
+            _check(counts == ref_counts, f"{name} x{speed}: frame counts "
+                   "card == CPU")
+            got = feats.cpu()
+            err = max(float((got[i, :c] - ref[i, :c]).abs().max())
+                      for i, c in enumerate(counts))
+            s_in = audio_s / speed
+            print(f"[frontend] {name} speed {speed}: feats "
+                  f"{list(feats.shape)}, {sum(counts)} frames; card "
+                  f"{t_card * 1e3:.2f} ms = {s_in / t_card:.0f} audio-s/s, "
+                  f"CPU {t_cpu * 1e3:.1f} ms = {s_in / t_cpu:.0f} audio-s/s; "
+                  f"card vs CPU max|d| {err:.2e} (bar {bar:g}) ({gpu})",
+                  flush=True)
+            _check(bool(torch.isfinite(got).all()), f"{name} finite")
+            _check(err <= bar, f"{name} x{speed} card vs CPU")
+            if mfcc and speed == 1.0:
+                mfcc_feats, mfcc_counts = got, counts
+    # the MFCCs as a compressed ark/scp, read back through the scp
+    with tempfile.TemporaryDirectory() as tmp:
+        ark, scp = os.path.join(tmp, "feats.ark"), os.path.join(tmp,
+                                                                "feats.scp")
+        items = [(f"utt{i:03d}", mfcc_feats[i, :c].numpy())
+                 for i, c in enumerate(mfcc_counts)]
+        kaldi_io.write_ark(ark, items, scp_path=scp, compress=True)
+        size = os.path.getsize(ark)
+        entries = kaldi_io.read_scp(scp)
+        _check([e[0] for e in entries] == [k for k, _ in items],
+               "scp keys in order")
+        worst = 0.0
+        glob = max(float(m.max()) for _, m in items) - min(
+            float(m.min()) for _, m in items)
+        for (key, mat), entry in zip(items, entries):
+            back = kaldi_io.load_scp_matrix(entry)
+            col = mat.max(0) - mat.min(0)
+            # one uint8 step is at most a 63rd of a column's range, plus
+            # the headers' 16-bit quantization of the global range
+            step = col / 63.0 + glob / 65535.0
+            worst = max(worst, float((np.abs(back - mat) / step).max()))
+        f32_bytes = 4 * sum(m.size for _, m in items)
+        print(f"[frontend] compressed ark: {len(items)} matrices, "
+              f"{size / 2**20:.2f} MiB ({size / f32_bytes:.3f} of float32);"
+              f" worst error {worst:.3f} of one compression step (bar 1)",
+              flush=True)
+        _check(worst <= 1.0, "CM round trip within one compression step")
+    # SpecAugment on the card: the masked share over 16 draws of the
+    # batch against the config's expectation
+    sa = SpecAugmentConfig()
+    x = torch.ones_like(mfcc_feats.to(dev))
+    gen = torch.Generator(dev).manual_seed(5)
+    shares = [float((spec_augment(x, sa, gen) == sa.mask_value).float()
+                    .mean()) for _ in range(16)]
+    want = _specaug_expected_share(x.shape[1], x.shape[2], sa)
+    got = float(np.mean(shares))
+    print(f"[frontend] spec_augment on {list(x.shape)}: masked share "
+          f"{got:.4f} over 16 draws, expected {want:.4f} (margin 0.02)",
+          flush=True)
+    _check(abs(got - want) <= 0.02, "spec_augment masked share")
+
+
+def _timed_steps(torch, step_fn, n: int):
+    """Run step_fn(i) n times, synchronizing after each: (outputs, ms)."""
+    outs, ms = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        outs.append(step_fn(i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def _reset_blocked(bdc):
+    bdc.blocked_den_fwd_cuda.launches = 0
+    bdc.blocked_den_bwd_cuda.launches = 0
+
+
+def _check_launches(bdc, n: int, what: str):
+    _check(_blocked_launches(bdc) == (n, n),
+           f"{what}: each blocked kernel launched once per step")
+
+
+def _optimizer_stage(torch, dev, gpu, g, model_cfg, batches):
+    """11b: the ng, adafactor and sgd + momentum kinds on the flagship
+    (bf16, den_obs_bf16, B = 64); ng's update on the card against the
+    CPU at a recompute step; one float32 ng step through the kernels
+    against the plain den.  Returns the blocked launches of the steps."""
+    from tdnnf_nas_torch.models import tdnnf as tdnnf_mod
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
+                                       TrainerConfig, init_train_state,
+                                       make_train_step)
+    from tdnnf_nas_torch.train.objective import chain_objective
+    from tdnnf_nas_torch.train.optimizer import (make_optimizer, tree_get,
+                                                 tree_paths, tree_unflatten)
+    from tdnnf_nas_torch.train.trainer import _wd_scale
+
+    total = 0
+    base = dict(lr_initial=1e-3, lr_final=1e-4, num_steps=100000)
+    for kind, n_steps, extra in (("ng", 12, dict(ng_update_period=10)),
+                                 ("adafactor", 8, {}),
+                                 ("sgd", 8, dict(momentum=0.9))):
+        tc = TrainerConfig(objective=ChainObjectiveConfig(den_obs_bf16=True),
+                           optimizer=OptimizerConfig(kind=kind, **base,
+                                                     **extra))
+        state = [init_train_state(model_cfg, tc,
+                                  torch.Generator().manual_seed(0), dev)]
+        step = make_train_step(model_cfg, tc, g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_blocked(bdc)
+
+        def one(i):
+            state[0], m = step(state[0], batches[i % len(batches)])
+            return float(m["objf_mmi"]), float(m["grad_norm"])
+
+        out, ms = _timed_steps(torch, one, n_steps)
+        _check_launches(bdc, n_steps, kind)
+        total += n_steps
+        _check(all(np.isfinite(v) for o in out for v in o),
+               f"{kind}: objf_mmi and grad_norm finite at every step")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if kind == "ng":
+            rec = [i for i in range(n_steps) if i % 10 == 0]
+            rest = [ms[i] for i in range(n_steps) if i % 10]
+            rec_ms = ", ".join(f"{i}: {ms[i]:.1f}" for i in rec)
+            times = (f"recompute steps {rec_ms} ms, the other {len(rest)} "
+                     f"{np.mean(rest):.2f} ms/step ({min(rest):.2f}-"
+                     f"{max(rest):.2f})")
+        else:
+            times = (f"{np.mean(ms[1:]):.2f} ms/step after the first "
+                     f"({ms[0]:.1f} ms)")
+        print(f"[optimizer {kind}] {n_steps} steps: objf_mmi "
+              + " ".join(f"{o[0]:.4f}" for o in out)
+              + f"; {times}; peak mem {peak:.2f} GiB; launches "
+              f"{_blocked_launches(bdc)} ({gpu})", flush=True)
+        del state, step
+
+    # ng's update alone at a recompute step: card vs CPU on the flagship's
+    # float32 gradients (TF32 off)
+    f32_cfg = model_cfg.replace(compute_dtype="float32")
+    ocfg = OptimizerConfig(kind="ng", **base)
+    tc = TrainerConfig(objective=ChainObjectiveConfig(), optimizer=ocfg)
+    st = init_train_state(f32_cfg, tc, torch.Generator().manual_seed(1), dev)
+    # every layer gets a gradient only once the zero-initialized output
+    # heads are not zero
+    st = dataclasses.replace(st, params=_random_heads(torch, st.params, 8))
+    pl = tree_paths(st.params)
+    leaves = [x.detach().requires_grad_(True) for _, x in pl]
+    params = tree_unflatten([(p, x) for (p, _), x in zip(pl, leaves)])
+    b = batches[0]
+    chain, xent, _ = tdnnf_mod.apply_model(f32_cfg, params, st.bn_state,
+                                           b["feats"], b.get("ivectors"),
+                                           train=True)
+    loss, _ = chain_objective(chain, xent, g, b["sup"], tc.objective)
+    grads = [x.detach() for x in torch.autograd.grad(loss, leaves)]
+    _, update = make_optimizer(ocfg, _wd_scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_p, new_s = update(grads, st.opt_state, st.params, 0)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_p, ref_s = update([x.cpu() for x in grads], _to_cpu(st.opt_state),
+                          _to_cpu(st.params), 0)
+    t_cpu = time.perf_counter() - t0
+    exact_p, exact_s = update([x.cpu().double() for x in grads],
+                              _to_f64(st.opt_state), _to_f64(st.params), 0)
+    # Each leaf's update (new - old params) and each covariance and
+    # inverse, against the same update in float64 on the CPU, as a share
+    # of the leaf's largest entry.  float32 eigh of (C + damp I) is only
+    # as good as its conditioning allows (up to 1 + dim / ng_alpha = 385
+    # at 1,536, with a near-rank-one C a cluster of eigenvalues at damp):
+    # the card's worst error may be at most 10x the CPU float32's own
+    # worst error, or 1e-4
+    names = (["/".join(k) for k, _ in pl]
+             + ["opt/" + "/".join(k) for k, _ in tree_paths(exact_s)])
+    exact = ([e - o.cpu().double() for (_, o), (_, e)
+              in zip(pl, tree_paths(exact_p))]
+             + [e for _, e in tree_paths(exact_s)])
+
+    def worst_err(new_p, new_s):
+        got = ([n.cpu().double() - o.cpu().double() for (_, o), (_, n)
+                in zip(pl, tree_paths(new_p))]
+               + [x for _, x in tree_paths(new_s)])
+        return _worst_share(got, exact, names)
+
+    (e_card, at_card), (e_cpu, at_cpu) = (worst_err(new_p, new_s),
+                                          worst_err(ref_p, ref_s))
+    n_eigh = sum(("cl" in s) + ("cr" in s) for s in (
+        tree_get(new_s["ng"], p) for p, _ in pl))
+    print(f"[optimizer ng] update at a recompute step ({n_eigh} eigh): "
+          f"card {t_card * 1e3:.1f} ms, CPU {t_cpu * 1e3:.0f} ms; against "
+          f"float64, worst share of a leaf's largest entry: card "
+          f"{e_card:.2e} ({at_card}), CPU float32 {e_cpu:.2e} ({at_cpu}); "
+          f"bar max(10 x CPU, 1e-4) ({gpu})", flush=True)
+    _check(e_card <= max(10.0 * e_cpu, 1e-4), "ng update card vs CPU")
+
+    # one float32 ng step through the kernels against the plain den
+    step32 = make_train_step(f32_cfg, tc, g)
+    st_k, m_k = step32(copy.deepcopy(st), b)
+    n_before = _blocked_launches(bdc)
+    plain = lambda device: (bdc.blocked_scan_fwd_plain,
+                            bdc.blocked_scan_bwd_plain)
+    with mock.patch.object(bdc, "_scan_impl", plain):
+        st_p, m_p = step32(copy.deepcopy(st), b)
+    torch.cuda.synchronize()
+    _check(n_before == _blocked_launches(bdc),
+           "the plain ng step launched no kernel")
+    d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
+    d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
+    d_upd = 0.0
+    for (path, old), (_, x), (_, y) in zip(pl, tree_paths(st_k.params),
+                                           tree_paths(st_p.params)):
+        scale = max(float((y - old).abs().max()), 1e-30)
+        d_upd = max(d_upd, float((x - y).abs().max()) / scale)
+    # the two updates differ by float32 eigh's rounding (each within
+    # e_card of the float64 update, as measured above) and by the
+    # kernels' gradient error amplified by the conditioning
+    tol_upd = 2.0 * e_card + 1e-3
+    print(f"[optimizer ng f32 step] objf_mmi kernel="
+          f"{float(m_k['objf_mmi']):.9g} plain={float(m_p['objf_mmi']):.9g}"
+          f" |d|={d_objf:.2e} (tol 1e-4); grad_norm |d|={d_gn:.2e} (tol "
+          f"1e-3 relative); update |d| {d_upd:.2e} of a leaf's largest "
+          f"(tol 2 x {e_card:.2e} + 1e-3)", flush=True)
+    _check(d_objf <= 1e-4, "f32 ng objf kernel vs plain")
+    _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
+           "f32 ng grad_norm kernel vs plain")
+    _check(d_upd <= tol_upd, "f32 ng update kernel vs plain")
+    return total
+
+
+def _adam_steps(torch, dev, gpu, what, forward, params, alphas, n_steps,
+                loss_fn):
+    """n_steps of a model without a train step of its own: forward(params,
+    alphas, i) -> (chain, xent, extra_loss, metrics), the chain objective
+    through the blocked kernels (loss_fn), backward, and Adam through
+    make_optimizer on params (and alphas).  Returns (params, alphas,
+    per-step metrics, ms)."""
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.train import OptimizerConfig
+    from tdnnf_nas_torch.train.optimizer import (make_optimizer, tree_paths,
+                                                 tree_unflatten)
+    from tdnnf_nas_torch.train.trainer import _wd_scale
+
+    ocfg = OptimizerConfig(kind="adam", lr_initial=1e-3, lr_final=1e-4,
+                           num_steps=100000)
+    p_init, p_update = make_optimizer(ocfg, _wd_scale)
+    a_init, a_update = make_optimizer(ocfg)
+    st = {"p": params, "a": alphas, "po": p_init(params),
+          "ao": a_init(alphas)}
+    _reset_blocked(bdc)
+
+    def one(i):
+        pl, al = tree_paths(st["p"]), tree_paths(st["a"])
+        pv = [x.detach().requires_grad_(True) for _, x in pl]
+        av = [x.detach().requires_grad_(True) for _, x in al]
+        p = tree_unflatten([(k, x) for (k, _), x in zip(pl, pv)])
+        a = tree_unflatten([(k, x) for (k, _), x in zip(al, av)])
+        chain, xent, extra, m = forward(p, a, i)
+        loss, metrics = loss_fn(chain, xent)
+        grads = torch.autograd.grad(loss + extra, pv + av)
+        with torch.no_grad():
+            st["p"], st["po"] = p_update(list(grads[:len(pv)]), st["po"],
+                                         st["p"], i)
+            if av:
+                st["a"], st["ao"] = a_update(list(grads[len(pv):]),
+                                             st["ao"], st["a"], i)
+        metrics.update(m)
+        metrics["alpha_grad"] = [g.detach() for g in grads[len(pv):]]
+        return metrics
+
+    out, ms = _timed_steps(torch, one, n_steps)
+    _check_launches(bdc, n_steps, what)
+    return st["p"], st["a"], out, ms
+
+
+def _random_heads(torch, params, seed: int):
+    """Output heads with seeded N(0, 0.1^2) weights: they start at zero,
+    which would make every logit 0 in a card-vs-CPU comparison."""
+    gen = torch.Generator().manual_seed(seed)
+    out = dict(params)
+    for head in ("chain", "xent"):
+        w = params[f"output_{head}"]["w"]
+        out[f"output_{head}"] = dict(
+            params[f"output_{head}"],
+            w=(0.1 * torch.randn(w.shape, generator=gen)).to(w.device))
+    return out
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _to_f64(tree):
+    """A nested dict of tensors as float64 on the CPU (the reference of
+    the float32 card-vs-CPU checks)."""
+    if isinstance(tree, dict):
+        return {k: _to_f64(v) for k, v in tree.items()}
+    return tree.detach().cpu().double()
+
+
+def _worst_share(got, exact, names):
+    """(worst max|got - exact| as a share of exact's largest entry, its
+    leaf's name) over paired lists of tensors."""
+    return max((float((g.detach().cpu().double() - e).abs().max())
+                / max(float(e.abs().max()), 1e-30), n)
+               for g, e, n in zip(got, exact, names))
+
+
+def _bayes_stage(torch, dev, gpu, g, model_cfg, batches):
+    """11c: the GP TDNN-F (gptdnnf-layer) at the flagship's width: 4
+    bf16 steps (eps from a generator, chain objective through the blocked
+    kernels + kl, Adam); a float32 test-mode forward card vs CPU."""
+    from tdnnf_nas_torch.models import count_params
+    from tdnnf_nas_torch.models.bayes import (BayesTdnnfModelConfig,
+                                              apply_bayes_model,
+                                              init_bayes_model)
+    from tdnnf_nas_torch.train import ChainObjectiveConfig
+    from tdnnf_nas_torch.train.objective import chain_objective
+
+    cfg = BayesTdnnfModelConfig(base=model_cfg, gp_activation=True)
+    params, bn = init_bayes_model(cfg, torch.Generator().manual_seed(2), dev)
+    n_params = count_params(params)
+    obj = ChainObjectiveConfig(den_obs_bf16=True)
+    gen = torch.Generator(dev)
+    state = {"bn": bn}
+
+    def forward(p, a, i):
+        gen.manual_seed(100 + i)
+        b = batches[i % len(batches)]
+        chain, xent, state["bn"], kl = apply_bayes_model(
+            cfg, p, state["bn"], b["feats"], b.get("ivectors"), gen,
+            train=True)
+        state["sup"] = b["sup"]
+        return chain, xent, kl, {"kl": kl.detach()}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, _, out, ms = _adam_steps(
+        torch, dev, gpu, "bayes", forward, params, {}, 4,
+        lambda c, x: chain_objective(c, x, g, state["sup"], obj))
+    objf = [float(m["objf_mmi"]) for m in out]
+    kl = [float(m["kl"]) for m in out]
+    _check(all(np.isfinite(objf + kl)), "bayes: objf_mmi and kl finite")
+    print(f"[bayes] GP TDNN-F, {n_params:,} params: 4 steps objf_mmi "
+          + " ".join(f"{v:.4f}" for v in objf) + " kl "
+          + " ".join(f"{v:.4f}" for v in kl)
+          + f"; {np.mean(ms[1:]):.2f} ms/step after the first ({ms[0]:.1f}"
+          f" ms); peak mem {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+          f" GiB ({gpu})", flush=True)
+    # test mode (mean weights), float32, TF32 off: 4 sequences, card vs
+    # CPU; the forward_corpus bar of phase 8 (rtol/atol 1e-4)
+    f32 = cfg.replace(base=model_cfg.replace(compute_dtype="float32"))
+    p = _random_heads(torch, params, 3)
+    b = batches[0]
+    feats, iv = b["feats"][:4], b["ivectors"][:4]
+    c_card, _, _, kl_card = apply_bayes_model(f32, p, state["bn"], feats, iv)
+    c_cpu, _, _, kl_cpu = apply_bayes_model(
+        f32, _to_cpu(p), _to_cpu(state["bn"]), feats.cpu(), iv.cpu())
+    c_card = c_card.cpu()
+    err = float((c_card - c_cpu).abs().max())
+    ok = bool(torch.allclose(c_card, c_cpu, rtol=1e-4, atol=1e-4))
+    print(f"[bayes] f32 test-mode logits {list(c_cpu.shape)} card vs CPU "
+          f"max|d| {err:.2e} (|logit| <= {float(c_cpu.abs().max()):.2f}, "
+          f"rtol/atol 1e-4); kl card {float(kl_card):.6g} CPU "
+          f"{float(kl_cpu):.6g}", flush=True)
+    _check(ok, "bayes f32 test-mode forward card vs CPU")
+    _check(abs(float(kl_card) - float(kl_cpu)) <= 1e-4 * abs(float(kl_cpu)),
+           "bayes kl card vs CPU")
+    return 4
+
+
+def _cnn_chunks(bundle, cfg, n_utts: int, chunk_width: int):
+    """Chunks with a CNN-TDNN-F's context from phase 1's corpus, den and
+    tree (the first n_utts training utterances)."""
+    from tdnnf_nas_torch.data.egs import EgsConfig, make_egs
+    from tdnnf_nas_torch.models.cnn import cnn_tdnnf_context
+
+    left, right = cnn_tdnnf_context(cfg)
+    ecfg = EgsConfig(chunk_width=chunk_width, left_context=left,
+                     right_context=right, tolerance=2,
+                     max_phones_per_chunk=40)
+    return make_egs(bundle.train_utts[:n_utts], bundle.lm, bundle.topo,
+                    bundle.tree, ecfg, den_fsa=bundle.den_fsa)
+
+
+def _cnn_stage(torch, dev, gpu, g, bundle, model_cfg, chunk_width,
+               batch_size):
+    """11d: CNN-TDNN-F at the flagship's width (conv 32 / 32 (height
+    stride 2) / 64 on 40 bins, out_dim 1,280): 4 bf16 steps; the
+    ConvDARTS variant's gumbel step; float32 forward + grad card vs
+    CPU."""
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.data import batch_iterator
+    from tdnnf_nas_torch.models import count_params
+    from tdnnf_nas_torch.models.cnn import (CnnFrontendConfig,
+                                            CnnTdnnfModelConfig,
+                                            ConvDartsLayerConfig,
+                                            apply_cnn_tdnnf,
+                                            cnn_tdnnf_context,
+                                            init_cnn_tdnnf)
+    from tdnnf_nas_torch.train import ChainObjectiveConfig
+    from tdnnf_nas_torch.train.objective import chain_objective
+    from tdnnf_nas_torch.train.optimizer import tree_paths, tree_unflatten
+
+    cfg = CnnTdnnfModelConfig(cnn=CnnFrontendConfig(), tdnnf=model_cfg)
+    _check(cfg.cnn.out_dim() == 1280, "CNN front end out_dim 1,280")
+    obj = ChainObjectiveConfig(den_obs_bf16=True)
+    launches = 0
+    for variant in ("conv", "darts"):
+        if variant == "darts":
+            cfg = cfg.replace(cnn=cfg.cnn.replace(
+                layers=(ConvDartsLayerConfig(),) + cfg.cnn.layers[1:]))
+        t0 = time.perf_counter()
+        chunks = _cnn_chunks(bundle, cfg, 240, chunk_width)
+        n_steps = 4 if variant == "conv" else 1
+        batches = []
+        for b in batch_iterator(chunks, batch_size=batch_size,
+                                rng=np.random.RandomState(0)):
+            if len(batches) == n_steps:
+                break
+            batches.append(convert.batch_to_torch(b, dev))
+        _check(len(batches) == n_steps and all(
+            b["feats"].shape[0] == batch_size for b in batches),
+            f"{n_steps} full CNN batches")
+        params, alphas, bn = init_cnn_tdnnf(
+            cfg, torch.Generator().manual_seed(4), dev)
+        if variant == "darts":
+            # the output heads start at zero, which leaves every layer
+            # below them without a gradient in a first step
+            params = _random_heads(torch, params, 7)
+        state = {"bn": bn}
+        gen = torch.Generator(dev)
+        mode = "gumbel" if variant == "darts" else "fixed"
+
+        def forward(p, a, i):
+            gen.manual_seed(200 + i)
+            b = batches[i]
+            chain, xent, state["bn"] = apply_cnn_tdnnf(
+                cfg, p, state["bn"], b["feats"], alphas=a, mode=mode,
+                tau=1.0, generator=gen, train=True)
+            state["sup"] = b["sup"]
+            return chain, xent, 0.0, {}
+
+        print(f"[cnn {variant}] {count_params(params):,} params, context "
+              f"{cnn_tdnnf_context(cfg)}, {len(chunks)} chunks from 240 "
+              f"utterances in {time.perf_counter() - t0:.1f} s, feats "
+              f"{list(batches[0]['feats'].shape)}", flush=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, alphas, out, ms = _adam_steps(
+            torch, dev, gpu, f"cnn {variant}", forward, params, alphas,
+            n_steps, lambda c, x: chain_objective(c, x, g, state["sup"],
+                                                  obj))
+        launches += n_steps
+        objf = [float(m["objf_mmi"]) for m in out]
+        _check(all(np.isfinite(objf)), f"cnn {variant}: objf_mmi finite")
+        extra = ""
+        if variant == "darts":
+            ga = out[0]["alpha_grad"][0]
+            gmax = float(ga.abs().max())
+            _check(bool(torch.isfinite(ga).all()) and gmax > 0,
+                   "conv_offsets alphas: finite non-zero gradient")
+            now = alphas["conv_offsets"].cpu().numpy().round(6).tolist()
+            extra = (f"; conv_offsets grad max|g| {gmax:.3e}, alphas now "
+                     f"{now}")
+        print(f"[cnn {variant}] {n_steps} {mode} steps objf_mmi "
+              + " ".join(f"{v:.4f}" for v in objf)
+              + f"; {np.mean(ms[1:] or ms):.2f} ms/step"
+              + (" after the first" if n_steps > 1 else "")
+              + f" ({ms[0]:.1f} ms first); peak mem "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+              f"{extra} ({gpu})", flush=True)
+
+    # float32 forward + grad, card vs CPU, cuDNN TF32 off: 2 sequences of
+    # the DARTS variant in softmax mode (its alphas get a gradient too),
+    # with the stored BN statistics.  The gradients are held as one vector
+    # (relative norm of the difference, 1e-3): of ~4 M ReLU inputs a few
+    # lie within float32 rounding of 0 and may take the other side on the
+    # other device, which moves single entries of a leaf by up to ~1e-2
+    # of its largest (seen on the CPU alone against float64) but not the
+    # vector's norm (float32 vs float64 on the CPU: 1.4e-6)
+    f32 = cfg.replace(tdnnf=model_cfg.replace(compute_dtype="float32"))
+    p0 = _random_heads(torch, params, 5)
+    feats = batches[0]["feats"][:2]
+    rng = np.random.RandomState(6)
+    r = torch.from_numpy(rng.randn(2, chunk_width, model_cfg.num_pdfs)
+                         .astype(np.float32))
+
+    def fwd_grad(p_tree, a_tree, bn_tree, x, rr):
+        pl, al = tree_paths(p_tree), tree_paths(a_tree)
+        pv = [v.detach().requires_grad_(True) for _, v in pl]
+        av = [v.detach().requires_grad_(True) for _, v in al]
+        chain, xent, _ = apply_cnn_tdnnf(
+            f32, tree_unflatten([(k, v) for (k, _), v in zip(pl, pv)]),
+            bn_tree, x,
+            alphas=tree_unflatten([(k, v) for (k, _), v in zip(al, av)]),
+            mode="softmax", tau=1.0, train=False)
+        loss = torch.mean(chain * rr) + torch.mean(xent * rr)
+        return chain.detach(), torch.autograd.grad(loss, pv + av)
+
+    c_card, g_card = fwd_grad(p0, alphas, state["bn"], feats, r.to(dev))
+    c_cpu, g_cpu = fwd_grad(_to_cpu(p0), _to_cpu(alphas),
+                            _to_cpu(state["bn"]), feats.cpu(), r)
+    c_card, g_card = c_card.cpu(), [x.cpu() for x in g_card]
+    err = float((c_card - c_cpu).abs().max())
+    ok = bool(torch.allclose(c_card, c_cpu, rtol=1e-4, atol=1e-4))
+    rel = float(torch.sqrt(sum(torch.sum((a - b).double() ** 2)
+                               for a, b in zip(g_card, g_cpu))
+                           / sum(torch.sum(b.double() ** 2) for b in g_cpu)))
+    names = ["/".join(k) for k, _ in tree_paths(p0)] + ["alphas"]
+    worst, at = _worst_share(g_card, [x.double() for x in g_cpu], names)
+    print(f"[cnn f32] logits {list(c_cpu.shape)} card vs CPU max|d| "
+          f"{err:.2e} (rtol/atol 1e-4); gradients of {len(g_cpu)} leaves "
+          f"(alphas included): relative norm of the difference {rel:.2e} "
+          f"(bar 1e-3), worst entry {worst:.2e} of its leaf's largest "
+          f"({at})", flush=True)
+    _check(ok, "cnn f32 logits card vs CPU")
+    _check(rel <= 1e-3, "cnn f32 gradients card vs CPU")
+    return launches
+
+
+def _trainers_phase(torch, dev, gpu, g, bundle, model_cfg, batches,
+                    chunk_width, batch_size):
+    """Phase 11: the front end, the optimizer kinds, Bayes/GP and
+    CNN-TDNN-F on phase 1's den and batches.  Returns the blocked
+    kernels' launches of its steps (the comparison steps apart)."""
+    t_phase = time.perf_counter()
+    _frontend_stage(torch, dev, gpu)
+    n = _optimizer_stage(torch, dev, gpu, g, model_cfg, batches)
+    n += _bayes_stage(torch, dev, gpu, g, model_cfg, batches)
+    n += _cnn_stage(torch, dev, gpu, g, bundle, model_cfg, chunk_width,
+                    batch_size)
+    print(f"[trainers phase] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"fwd": n, "bwd": n}
+
+
 def main() -> int:
     import torch
 
@@ -1823,16 +2538,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from tdnnf_nas_torch import convert
-    from tdnnf_nas_torch.data import (SyntheticCorpusConfig, batch_iterator,
-                                      make_synthetic_corpus, native)
-    from tdnnf_nas_torch.graphs import (accumulate_triphone_stats,
-                                        build_clustered_triphone_tree)
+    from tdnnf_nas_torch.data import native
     from tdnnf_nas_torch.models import TdnnfModelConfig, count_params
     from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
     from tdnnf_nas_torch.ops import cuda_build
     from tdnnf_nas_torch.ops import dense_den_cuda as ddc
-    from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
-    from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
     from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
                                        TrainerConfig, init_train_state,
                                        make_train_step)
@@ -1855,42 +2565,9 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 1. flagship host setup (bench.py:113-157) ----
-    t0 = time.perf_counter()
-    batch_size, chunk_width, num_phones = 64, 50, 46
-    corpus_cfg = SyntheticCorpusConfig(
-        num_utts=768, num_phones=num_phones, feat_dim=40, min_phones=10,
-        max_phones=30, mean_dur=4.0, context_shift=1.0, seed=0)
-    utts, phone_seqs, _, topo = make_synthetic_corpus(corpus_cfg)
-    stats = accumulate_triphone_stats(
-        [u.feats for u in utts], phone_seqs, [u.begins for u in utts],
-        num_phones, corpus_cfg.frame_subsampling_factor)
-    tree = build_clustered_triphone_tree(stats, num_leaves=6034 - num_phones)
-    bundle = prepare_data(utts, phone_seqs, tree, topo, num_phones,
-                          phone_lm_order=4, num_extra_lm_states=2000)
-    host_den = bundle.den_arrays
-    model_cfg = TdnnfModelConfig(num_pdfs=tree.num_pdfs)
-    chunks = bundle.egs(model_cfg, chunk_width=chunk_width,
-                        max_phones_per_chunk=40)
-    iv_rng = np.random.RandomState(3)
-    host_batches = []
-    for b in batch_iterator(chunks, batch_size=batch_size,
-                            rng=np.random.RandomState(0), drop_last=False):
-        if len(host_batches) >= 8 or b["feats"].shape[0] != batch_size:
-            break
-        b["ivectors"] = iv_rng.randn(batch_size, model_cfg.ivector_dim
-                                     ).astype(np.float32)
-        host_batches.append(b)
-    c, nsrc, ndp = host_den.shape
-    print(f"[setup] {time.perf_counter() - t0:.1f} s: pdfs={tree.num_pdfs} "
-          f"den_states={host_den.num_states} w_blocks=[{c},{nsrc},{ndp}] "
-          f"R={host_den.enter_pad} chunks={len(chunks)} "
-          f"batches={len(host_batches)} feats="
-          f"{list(host_batches[0]['feats'].shape)}", flush=True)
-    _check(host_den.num_states == 10271, "10,271 den states")
-    _check(tree.num_pdfs == 6034, "6,034 pdfs")
-    _check(host_den.bcast_sel is None, "no wildcard term")
-    _check(len(host_batches) == 8, "8 full batches")
-    g = BlockedDenGraph.from_host(host_den, dev)
+    batch_size, chunk_width = FLAGSHIP_BATCH, FLAGSHIP_CHUNK
+    (utts, phone_seqs, topo, tree, bundle, model_cfg, chunks, iv_rng,
+     host_batches, g) = _flagship_setup(dev)
     batches = [convert.batch_to_torch(b, dev) for b in host_batches]
 
     # ---- 2. kernel vs plain at the flagship den shape ----
@@ -2003,7 +2680,7 @@ def main() -> int:
     # ---- 7. the step fed from a TEGS shard through the native loader ----
     loader_launches = _loader_phase(torch, dev, gpu, chunks, g, model_cfg,
                                     trainer_cfg, resident)
-    del g, chunks, resident
+    del chunks, resident  # phase 11 takes g, the bundle and host_batches
 
     # ---- 8. the decode path at the flagship's width ----
     decode_launches, ctx = _decode_phase(torch, dev, gpu, tree, topo,
@@ -2013,13 +2690,20 @@ def main() -> int:
     del ctx
     # ---- 10. the tri5_7d path: GMM ladder, +-1 tree, committed den ----
     pm1_launches, pm1 = _tri5_7d_phase(torch, dev, gpu)
+    # ---- 11. front end, optimizer kinds, Bayes/GP and CNN-TDNN-F ----
+    trainer_launches = _trainers_phase(
+        torch, dev, gpu, g, bundle, model_cfg,
+        [convert.batch_to_torch(b, dev) for b in host_batches], chunk_width,
+        batch_size)
     for k in ("fwd", "bwd"):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
               f"loader-fed phase {loader_launches[k]}, decode-phase "
               f"training {decode_launches[k]}, LHUC steps "
-              f"{lhuc_launches[k]}, +-1 steps {pm1_launches[k]}", flush=True)
+              f"{lhuc_launches[k]}, +-1 steps {pm1_launches[k]}, phase 11 "
+              f"steps {trainer_launches[k]}", flush=True)
         launches[k] += (loader_launches[k] + decode_launches[k]
-                        + lhuc_launches[k] + pm1_launches[k])
+                        + lhuc_launches[k] + pm1_launches[k]
+                        + trainer_launches[k])
 
     kernels = [
         {"name": f"blocked_den_{k}", "route": "cuda",

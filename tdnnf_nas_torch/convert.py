@@ -1,7 +1,7 @@
 """Converters between the JAX package's state and the port's tensors.
 
 The JAX package keeps ``params``, ``bn_state``, a supernet's ``alphas``
-and each Adam state's ``m``/``v``, the RNNLM's parameters and the LHUC
+and each optimizer state (of any kind), the RNNLM's parameters and the LHUC
 logits as nested dicts of arrays, and the GMM ladder's models as numpy
 arrays; callers
 hand them over as nested dicts of numpy arrays
@@ -44,31 +44,34 @@ def tree_to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-def _adam_to_torch(opt_state, device):
-    return {"m": tree_to_torch(opt_state["m"], device),
-            "v": tree_to_torch(opt_state["v"], device)}
+def opt_state_from_numpy(opt_state, device=DEFAULT_DEVICE):
+    """The JAX package's optimizer state of any kind, as numpy -> the same
+    nested dicts of tensors on ``device`` (``train/optimizer``'s layout):
+    adam ``{"m", "v"}``, sgd ``{}`` or ``{"m"}``, adafactor ``{"f"}``, ng
+    ``{"ng"}`` whose per-leaf dicts may be empty (kept empty)."""
+    return tree_to_torch(opt_state, device)
 
 
-def _adam_to_numpy(opt_state):
-    return {"m": tree_to_numpy(opt_state["m"]),
-            "v": tree_to_numpy(opt_state["v"])}
+def opt_state_to_numpy(opt_state):
+    """Inverse of :func:`opt_state_from_numpy`."""
+    return tree_to_numpy(opt_state)
 
 
 def train_state_from_numpy(params, bn_state, opt_state, step: int,
                            device=DEFAULT_DEVICE) -> TrainState:
-    """TrainState from the JAX package's (numpy) params, bn_state and Adam
-    state ``{"m": ..., "v": ...}``."""
+    """TrainState from the JAX package's (numpy) params, bn_state and
+    optimizer state of any kind (:func:`opt_state_from_numpy`)."""
     return TrainState(params=tree_to_torch(params, device),
                       bn_state=tree_to_torch(bn_state, device),
-                      opt_state=_adam_to_torch(opt_state, device),
+                      opt_state=opt_state_from_numpy(opt_state, device),
                       step=int(step))
 
 
 def train_state_to_numpy(state: TrainState):
-    """(params, bn_state, {"m", "v"}, step) as numpy, the inverse of
+    """(params, bn_state, opt_state, step) as numpy, the inverse of
     :func:`train_state_from_numpy`."""
     return (tree_to_numpy(state.params), tree_to_numpy(state.bn_state),
-            _adam_to_numpy(state.opt_state), state.step)
+            opt_state_to_numpy(state.opt_state), state.step)
 
 
 def supernet_state_from_numpy(params, alphas, bn_state, opt_state,
@@ -76,19 +79,20 @@ def supernet_state_from_numpy(params, alphas, bn_state, opt_state,
                               device=DEFAULT_DEVICE) -> TrainState:
     """TrainState of a supernet from the JAX package's (numpy) fields, in
     the order of its TrainState: params, alphas, bn_state, the params'
-    and the alphas' Adam states ``{"m", "v"}``, step."""
+    and the alphas' optimizer states (any kind), step."""
     return dataclasses.replace(
         train_state_from_numpy(params, bn_state, opt_state, step, device),
         alphas=tree_to_torch(alphas, device),
-        alpha_opt_state=_adam_to_torch(alpha_opt_state, device))
+        alpha_opt_state=opt_state_from_numpy(alpha_opt_state, device))
 
 
 def supernet_state_to_numpy(state: TrainState):
     """(params, alphas, bn_state, opt_state, alpha_opt_state, step) as
     numpy, the inverse of :func:`supernet_state_from_numpy`."""
     return (tree_to_numpy(state.params), tree_to_numpy(state.alphas),
-            tree_to_numpy(state.bn_state), _adam_to_numpy(state.opt_state),
-            _adam_to_numpy(state.alpha_opt_state), state.step)
+            tree_to_numpy(state.bn_state),
+            opt_state_to_numpy(state.opt_state),
+            opt_state_to_numpy(state.alpha_opt_state), state.step)
 
 
 _SUP_ARRAYS = ("trans", "state_pdf", "init", "final", "mask", "next_w")

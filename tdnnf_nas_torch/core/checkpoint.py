@@ -9,8 +9,14 @@ there).
 step (`train/trainer.py:67-72` there), each nested dict in sorted-key
 order, and ``step`` a 0-d int32 leaf.  That is not the order in which the
 port's dataclass declares its fields, so the two packages load each
-other's checkpoints.  A plain model's empty ``alphas`` and
-``alpha_opt_state`` add no leaves.  ``treedef`` is a description of the
+other's checkpoints.  Empty dicts add no leaves: a plain model's
+``alphas`` and ``alpha_opt_state`` contents, plain SGD's ``{}`` state, and
+the per-leaf ``ng`` states of leaves with no preconditioned side.  So the
+optimizer state of every kind crosses as it is (``train/optimizer``
+builds the reference's structure: adam ``m, v``; sgd ``m`` or nothing;
+adafactor ``vc, vr`` or ``v`` per leaf; ng ``cl, cr, pl, pr`` per leaf,
+each in sorted-key order), and ``like_state`` must come from an
+optimizer of the checkpoint's kind.  ``treedef`` is a description of the
 port's own; the reference reads only ``num_leaves`` and the shapes.
 
 A step's random draws are a function of (seed, state.step)

@@ -6,4 +6,5 @@ from tdnnf_nas_torch.models.nas import (BOTTLENECK_DIMS, BOTTLENECK_GROUPS,
                                         supernet_context)
 from tdnnf_nas_torch.models.tdnnf import (TdnnfModelConfig, apply_model,
                                           chunk_input_frames, count_params,
-                                          init_model, model_context)
+                                          estimate_lda, init_model,
+                                          model_context)

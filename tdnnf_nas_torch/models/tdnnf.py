@@ -279,6 +279,7 @@ def apply_model(
     generator: Optional[torch.Generator] = None,
     dropout_p: Optional[float] = None,
     post_bn_scales=None,
+    layer_activations=None,
 ):
     """Forward pass.
 
@@ -290,7 +291,9 @@ def apply_model(
     multiplied in after that layer's batchnorm, before dropout and the
     bypass (LHUC, models/lhuc.py).  As in the reference, a bf16
     activation times a float32 scale is float32, and the layers after it
-    see that.
+    see that.  ``layer_activations``: optional {layer_name: callable}
+    replacing the ReLU of individual tdnnf layers (GP activations,
+    models/bayes.py).
 
     Returns (chain_logits [B, T_out, P], xent_logits [B, T_out, P],
     new_bn_state) at the subsampled rate, logits in float32.
@@ -304,7 +307,8 @@ def apply_model(
     chain, xent = tdnnf_stack_and_heads(cfg, params, bn_state, new_bn, x,
                                         train, generator, consumed_left=1,
                                         dropout_p=dp,
-                                        post_bn_scales=post_bn_scales)
+                                        post_bn_scales=post_bn_scales,
+                                        layer_activations=layer_activations)
     return chain, xent, new_bn
 
 
@@ -318,12 +322,14 @@ def _scale(x: torch.Tensor, scales, name: str) -> torch.Tensor:
 
 def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
                           x, train, generator, consumed_left: int = 1,
-                          dropout_p: float = 0.0, post_bn_scales=None):
+                          dropout_p: float = 0.0, post_bn_scales=None,
+                          layer_activations=None):
     """The tdnnf stack + prefinal/output heads on a hidden sequence x.
 
     consumed_left: original-frame position of x's frame 0, which fixes the
-    phase of the rate-optimized subsample; ``post_bn_scales`` as in
-    :func:`apply_model`.
+    phase of the rate-optimized subsample; ``post_bn_scales`` and
+    ``layer_activations`` as in :func:`apply_model`.  Shared by the plain
+    and the CNN front-end models.
     """
     dt = cfg.dtype
     fs = cfg.frame_subsampling_factor
@@ -348,7 +354,8 @@ def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
                                     compute_dtype=dt).to(dt)
         cur = spliced_linear(bottleneck, p["affine"], aff_off,
                              bias=p["affine_b"], compute_dtype=dt).to(dt)
-        cur = torch.relu(cur)
+        act = (layer_activations or {}).get(name, torch.relu)
+        cur = act(cur)
         cur, new_bn[name] = _batchnorm(cur, bn_state[name], train)
         cur = _scale(cur, post_bn_scales, name)
         cur = _dropout(cur, dropout_p, generator, train)
@@ -397,3 +404,19 @@ def _leaves(tree):
 def count_params(params) -> int:
     """Total parameter count (works on tensors, arrays or shape stand-ins)."""
     return int(sum(int(np.prod(p.shape)) for p in _leaves(params)))
+
+
+def estimate_lda(spliced_feats: np.ndarray, ridge: float = 1e-3
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Whitening preconditioner over spliced input features (numpy, as in
+    the reference): zero-mean + decorrelate + unit-variance linear map
+    (w, b) with y = x @ w + b, the stand-in for the reference's LDA-like
+    preconditioning matrix estimated from egs
+    (`steps/nnet3/chain/train.py:426-434`)."""
+    x = spliced_feats.reshape(-1, spliced_feats.shape[-1]).astype(np.float64)
+    mean = x.mean(axis=0)
+    cov = np.cov(x - mean, rowvar=False) + ridge * np.eye(x.shape[1])
+    evals, evecs = np.linalg.eigh(cov)
+    w = evecs @ np.diag(1.0 / np.sqrt(np.maximum(evals, 1e-8))) @ evecs.T
+    b = -mean @ w
+    return w.astype(np.float32), b.astype(np.float32)

@@ -45,3 +45,12 @@ def semi_orthogonal_step_3d(w: torch.Tensor, scale: float = -1.0) -> torch.Tenso
     """Apply to a [K, F, D] spliced weight treated as one [K*F, D] matrix."""
     k, f, d = w.shape
     return semi_orthogonal_step(w.reshape(k * f, d), scale).reshape(k, f, d)
+
+
+def orthonormality_error(w: torch.Tensor) -> torch.Tensor:
+    """||M M^T / scale^2 - I||_F / rows diagnostic (floating scale)."""
+    m = (w.T if w.shape[0] >= w.shape[1] else w).float()
+    p = m @ m.T
+    scale2 = torch.sum(p * p) / torch.trace(p)
+    eye = torch.eye(p.shape[0], dtype=torch.float32, device=w.device)
+    return torch.sqrt(torch.mean((p / scale2 - eye) ** 2))

@@ -10,12 +10,13 @@ import torch
 
 from tdnnf_nas_torch import convert
 from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
-from tdnnf_nas_torch.data import ivector
+from tdnnf_nas_torch.data import audio, ivector
 from tdnnf_nas_torch.decode import align, wfst
 from tdnnf_nas_torch.gmm import gmm as gmm_mod
 from tdnnf_nas_torch.gmm import ladder
 from tdnnf_nas_torch.lm import rnnlm
-from tdnnf_nas_torch.models import lhuc, nas, tdnnf
+from tdnnf_nas_torch.models import bayes, cnn, lhuc, nas, tdnnf
+from tdnnf_nas_torch.ops import extras
 from tdnnf_nas_torch.recipes import chain_recipes
 from tdnnf_nas_torch.tools import e2e_flagship
 from tdnnf_nas_torch.train import trainer
@@ -58,6 +59,12 @@ _ENTRY_POINTS = {
     "bootstrap_alignments_gmm": (chain_recipes.bootstrap_alignments_gmm,
                                  (None, None, None)),
     "bootstrap_stage": (e2e_flagship.bootstrap_stage, (None,) * 5),
+    "featurize_batch": (audio.featurize_batch, ([np.zeros(400)], None)),
+    "init_bayes_model": (bayes.init_bayes_model, (None, None)),
+    "init_cnn_frontend": (cnn.init_cnn_frontend, (None, None)),
+    "init_cnn_tdnnf": (cnn.init_cnn_tdnnf, (None, None)),
+    "normal_rand": (extras.normal_rand, (2, 3, None)),
+    "opt_state_from_numpy": (convert.opt_state_from_numpy, ({},)),
     "am_gmm_from_jax": (convert.am_gmm_from_jax, (None,)),
     "ladder_result_from_jax": (convert.ladder_result_from_jax, (None,)),
 }
