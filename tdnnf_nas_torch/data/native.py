@@ -1,15 +1,18 @@
-"""Build and load the native egs loader and the native decoders (port of
-``tdnnf_nas_tpu.data.native``: the loader half, `data/native.py:22-72,
-117-122` there, and the decoder half, `:88-114, 209-420`).
+"""Build and load the native egs loader, the native supervision builder
+and the native decoders (port of ``tdnnf_nas_tpu.data.native``: the
+loader half, `data/native.py:22-72, 117-122` there, the builder half,
+`:135-207, 423-433`, and the decoder half, `:88-114, 209-420`).
 
-Compiles ``native/egs_loader.cc`` alone into one library, and
-``native/decoder.cc``, ``native/lattice.cc`` and ``native/beam_sparse.cc``
-together into another, each with ``g++ -O3 -shared -fPIC -std=c++17
--pthread`` into ``tdnnf_nas_torch/_build/`` (git-ignored), named by a
-hash of its sources and the flags, written to a temporary name and
-renamed into place, as ``ops/cuda_build.py`` does for the kernels.  It
-never loads the JAX package's ``native/libegs.so``.  The supervision
-builder (``egs_builder.cc``) waits for the slice that calls it.
+Compiles the port's own copy of the loader, ``csrc/egs_loader.cc`` (the
+reference's ``native/egs_loader.cc`` with its two lost wake-ups
+repaired), alone into one library; ``native/egs_builder.cc`` as it is
+(with OpenMP) into another; and ``native/decoder.cc``,
+``native/lattice.cc`` and ``native/beam_sparse.cc`` together into a
+third, each with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` into
+``tdnnf_nas_torch/_build/`` (git-ignored), named by a hash of its
+sources and the flags, written to a temporary name and renamed into
+place, as ``ops/cuda_build.py`` does for the kernels.  It never loads
+the JAX package's ``native/libegs.so``.
 
 Unlike the reference, which returns None when the build or the load
 fails (and whose callers then fall back to numpy), a failed build raises
@@ -25,34 +28,40 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 _NATIVE = _PKG.parent / "native"
-SOURCE = _NATIVE / "egs_loader.cc"
+SOURCE = _PKG / "csrc" / "egs_loader.cc"
+BUILDER_SOURCES = (_NATIVE / "egs_builder.cc",)
 DECODER_SOURCES = tuple(_NATIVE / s for s in ("decoder.cc", "lattice.cc",
                                               "beam_sparse.cc"))
 BUILD_DIR = _PKG / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# egs_builder.cc parallelises over the batch with OpenMP
+BUILDER_FLAGS = CXX_FLAGS + ("-fopenmp",)
 
 
-def library_path(srcs=(SOURCE,), stem: str = "egs_loader") -> Path:
+def library_path(srcs=(SOURCE,), stem: str = "egs_loader",
+                 flags=CXX_FLAGS) -> Path:
     """Where the library of ``srcs`` lives, keyed on its sources and
     flags."""
     h = hashlib.sha256()
     for src in srcs:
         h.update(src.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(srcs=(SOURCE,), stem: str = "egs_loader") -> Path:
+def build(srcs=(SOURCE,), stem: str = "egs_loader",
+          flags=CXX_FLAGS) -> Path:
     """Compile ``srcs`` into one library unless it exists; return the
     library's path.  Raises RuntimeError with the compiler's output on
     failure."""
-    so = library_path(srcs, stem)
+    so = library_path(srcs, stem, flags)
     if so.exists():
         return so
     names = ", ".join(s.name for s in srcs)
@@ -62,7 +71,7 @@ def build(srcs=(SOURCE,), stem: str = "egs_loader") -> Path:
     try:
         try:
             proc = subprocess.run(
-                [CXX, *CXX_FLAGS, "-o", tmp, *(str(s) for s in srcs)],
+                [CXX, *flags, "-o", tmp, *(str(s) for s in srcs)],
                 capture_output=True, text=True)
         except OSError as e:
             raise RuntimeError(f"cannot run {CXX!r} to build {names}: "
@@ -81,7 +90,12 @@ def build(srcs=(SOURCE,), stem: str = "egs_loader") -> Path:
 def get_lib() -> ctypes.CDLL:
     """The loader's library, built at first use, with every entry point's
     argument and return types declared."""
-    lib = ctypes.CDLL(str(build()))
+    return bind_loader(ctypes.CDLL(str(build())))
+
+
+def bind_loader(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the loader's entry points' argument and return types on a
+    library built from a loader source; returns it."""
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -110,6 +124,130 @@ def _u8p(a):
 
 def _i64p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+@functools.lru_cache(maxsize=None)
+def get_builder_lib() -> ctypes.CDLL:
+    """The supervision builder's library (``build_supervision_batch``,
+    ``edit_distance_batch``), built at first use, with both entry points'
+    argument and return types declared."""
+    lib = ctypes.CDLL(str(build(BUILDER_SOURCES, "egs_builder",
+                                BUILDER_FLAGS)))
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    c_i32 = ctypes.c_int32
+    lib.build_supervision_batch.argtypes = [
+        i32p, i32p, i32p, i32p, f32p, i32p, i32p, f32p, f32p,
+        ctypes.c_float, c_i32, c_i32, c_i32, c_i32, c_i32,
+        f32p, i32p, f32p, f32p, f32p,
+    ]
+    lib.build_supervision_batch.restype = None
+    lib.edit_distance_batch.argtypes = [i32p, i32p, i32p, i32p, c_i32, i32p]
+    lib.edit_distance_batch.restype = None
+    return lib
+
+
+def _ragged(seqs: Sequence[Sequence[int]]):
+    """(flat int32 values, [N+1] int32 offsets) of ragged sequences."""
+    offsets = np.zeros(len(seqs) + 1, np.int32)
+    for i, s in enumerate(seqs):
+        offsets[i + 1] = offsets[i] + len(s)
+    flat = np.asarray([x for s in seqs for x in s], np.int32)
+    if flat.size == 0:
+        flat = np.zeros(1, np.int32)
+    return flat, offsets
+
+
+def build_supervision_batch_native(
+    phone_seqs: Sequence[Sequence[int]],
+    begin_seqs: Optional[Sequence[Sequence[int]]],
+    end_seqs: Optional[Sequence[Sequence[int]]],
+    lm_probs: np.ndarray,  # [P+1, P]
+    fwd_pdf_table: np.ndarray,  # [P+1, P] int32
+    self_pdf_table: np.ndarray,  # [P] int32
+    den_init_enter: Optional[np.ndarray],  # [P] or None
+    den_init_loop: Optional[np.ndarray],
+    self_loop_prob: float,
+    tol: int,
+    num_frames: int,
+    max_states: int,
+) -> dict:
+    """Batched dense numerator graphs from ``native/egs_builder.cc``: a
+    dict of [B, ...] arrays ``trans`` [B, S, S], ``state_pdf``, ``init``,
+    ``final`` [B, S] and ``mask`` [B, T, S], laid out as
+    ``graphs.supervision.make_chunk_supervision`` lays out one chunk (a
+    bigram LM and a tree of at most one left phone).  ``begin_seqs`` None
+    builds unaligned graphs (every state allowed at every frame)."""
+    lib = get_builder_lib()
+    b = len(phone_seqs)
+    p = lm_probs.shape[1]
+    s, t = max_states, num_frames
+    phones, offsets = _ragged(phone_seqs)
+    null_i = ctypes.cast(None, ctypes.POINTER(ctypes.c_int32))
+    null_f = ctypes.cast(None, ctypes.POINTER(ctypes.c_float))
+    bp = ep = null_i
+    if begin_seqs is not None:
+        begins, boff = _ragged(begin_seqs)
+        ends, eoff = _ragged(end_seqs)
+        if not ((boff == offsets).all() and (eoff == offsets).all()):
+            raise ValueError("begin/end sequences must match the phones' "
+                             "lengths")
+        bp, ep = _i32p(begins), _i32p(ends)
+    lm = np.ascontiguousarray(lm_probs, np.float32)
+    fwd = np.ascontiguousarray(fwd_pdf_table, np.int32)
+    slf = np.ascontiguousarray(self_pdf_table, np.int32)
+    de = (None if den_init_enter is None
+          else np.ascontiguousarray(den_init_enter, np.float32))
+    dl = (None if den_init_loop is None
+          else np.ascontiguousarray(den_init_loop, np.float32))
+    out = {"trans": np.zeros((b, s, s), np.float32),
+           "state_pdf": np.zeros((b, s), np.int32),
+           "init": np.zeros((b, s), np.float32),
+           "final": np.zeros((b, s), np.float32),
+           "mask": np.zeros((b, t, s), np.float32)}
+    lib.build_supervision_batch(
+        _i32p(phones), _i32p(offsets), bp, ep, _f32p(lm), _i32p(fwd),
+        _i32p(slf), null_f if de is None else _f32p(de),
+        null_f if dl is None else _f32p(dl),
+        ctypes.c_float(self_loop_prob), tol, t, s, p, b,
+        _f32p(out["trans"]), _i32p(out["state_pdf"]), _f32p(out["init"]),
+        _f32p(out["final"]), _f32p(out["mask"]))
+    return out
+
+
+def tree_tables(tree, num_phones: int):
+    """(fwd_pdf_table [P+1, P], self_pdf_table [P]) of a tree: the forward
+    pdf of each phone after each left phone (row 0: no left phone) and
+    each phone's self-loop pdf."""
+    fwd = np.zeros((num_phones + 1, num_phones), np.int32)
+    for left in range(-1, num_phones):
+        for p in range(num_phones):
+            fwd[left + 1, p] = tree.forward_pdf(p, left)
+    slf = np.asarray([tree.self_loop_pdf(p) for p in range(num_phones)],
+                     np.int32)
+    return fwd, slf
+
+
+def den_init_tables(den_graph, num_phones: int):
+    """(enter [P], loop [P]) den init probs of the CI den-graph layout."""
+    g = den_graph
+    if g.num_states != 2 * num_phones:
+        raise ValueError("den_init_tables supports the CI den layout only")
+    return (np.asarray(g.init[:num_phones], np.float32),
+            np.asarray(g.init[num_phones:], np.float32))
+
+
+def edit_distance_batch_native(refs: List[Sequence[int]],
+                               hyps: List[Sequence[int]]) -> np.ndarray:
+    """[N, 4] int32 counts (sub, ins, del, hits) of each (ref, hyp)
+    pair."""
+    lib = get_builder_lib()
+    r, ro = _ragged(refs)
+    h, ho = _ragged(hyps)
+    out = np.zeros((len(refs), 4), np.int32)
+    lib.edit_distance_batch(_i32p(r), _i32p(ro), _i32p(h), _i32p(ho),
+                            len(refs), _i32p(out))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,6 @@
 """Host-side chain graph machinery (numpy copies of ``tdnnf_nas_tpu.graphs``)."""
 from tdnnf_nas_torch.graphs.den_graph import (BlockedDenGraph, CompiledDenFsa,
+                                              FactoredDenGraph,
                                               build_denominator_graph,
                                               compile_denominator_fsa,
                                               den_init_lookup)

@@ -13,9 +13,12 @@ Equivalent of Kaldi's ``chain-make-den-fst``, in two forms:
   is ``ops.fwdbwd.BlockedDenGraph.from_host``; the committed graph's
   wildcard positions become its rank-R broadcast term.
 
+When the blocked export refuses a den (its padded blocks over their
+budget: the +-1 den at the bench's scale), ``CompiledDenFsa.to_factored``
+exports the position-factored form, whose device copy is
+``ops.fwdbwd.FactoredDenGraph.from_host``.
 ``CompiledDenFsa.to_state_graph`` is its dense [S,S] export (small
 graphs: the phone decode of ``recipes.chain_recipes.decode_corpus``).
-``to_factored`` is not ported.
 """
 
 from __future__ import annotations
@@ -127,6 +130,54 @@ class BlockedDenGraph:
 
 
 @dataclasses.dataclass
+class FactoredDenGraph:
+    """Host (numpy) position-factored denominator graph.
+
+    The fields of the reference's device ``FactoredDenGraph``
+    (``seg_bounds``, ``state_pdf``, ``init``, ``final``, ``trans_pos``,
+    ``pdf_perm``, ``pdf_bounds``), with the arc list sorted by destination
+    state in place of its padded [S, K] in-arc tables ``in_pos``/``in_w``
+    (the same arcs, row by row, without the padding to the largest
+    in-degree K: 424.6 M entries a table on the bench-scale +-1 den).  The
+    scan sums over the arc list when the dense ``trans_pos`` is not built.
+    See ``ops/fwdbwd.FactoredDenGraph`` for the recursion.
+    """
+
+    seg_bounds: np.ndarray  # [Npos+1] int32
+    state_pdf: np.ndarray  # [S] int32
+    init: np.ndarray  # [S] f32
+    final: np.ndarray  # [S] f32
+    trans_pos: Optional[np.ndarray]  # [Npos, S] f32 or None
+    pdf_perm: np.ndarray  # [S] int32 states sorted by pdf
+    pdf_bounds: np.ndarray  # [P+1] int32 runs of equal pdfs in pdf_perm
+    # arcs sorted by destination (stable): dst_bounds[s]..dst_bounds[s+1]
+    # are the arcs into state s
+    arc_dst: np.ndarray  # [A] int32
+    arc_src_pos: np.ndarray  # [A] int32
+    arc_w: np.ndarray  # [A] f32
+    dst_bounds: np.ndarray  # [S+1] int64
+    num_pdfs: int = 0
+
+    @property
+    def num_states(self) -> int:
+        return int(self.state_pdf.shape[0])
+
+    @property
+    def num_positions(self) -> int:
+        return int(self.seg_bounds.shape[0]) - 1
+
+    @property
+    def num_arcs(self) -> int:
+        return int(self.arc_dst.shape[0])
+
+    @property
+    def max_in_degree(self) -> int:
+        """K, the in-degree the reference's padded tables pad every state
+        to."""
+        return max(1, int(np.diff(self.dst_bounds).max(initial=0)))
+
+
+@dataclasses.dataclass
 class CompiledDenFsa:
     """Host-side composed denominator FSA (LM x topology x tree).
 
@@ -175,6 +226,42 @@ class CompiledDenFsa:
         )
         g.validate(stochastic=False)
         return g
+
+    def to_factored(self, dense_budget: int = 256_000_000
+                    ) -> FactoredDenGraph:
+        """Host FactoredDenGraph (position-factored form).
+
+        When Npos * S fits ``dense_budget`` entries, also materialises the
+        dense [Npos, S] position->state transition ``trans_pos`` (the scan
+        then runs one float32 matmul a frame); beyond it the scan sums
+        over the destination-sorted arc list.  The reference's hi/lo bf16
+        split of ``trans_pos`` is a TPU workaround and is not kept.
+        """
+        s = self.num_states
+        order = np.argsort(self.arc_dst, kind="stable")
+        dst = np.asarray(self.arc_dst[order], np.int32)
+        srcp = np.asarray(self.arc_src_pos[order], np.int32)
+        w = np.asarray(self.arc_w[order], np.float32)
+        starts = np.concatenate(
+            [[0], np.cumsum(np.bincount(dst, minlength=s))]).astype(np.int64)
+        trans_pos = None
+        if self.num_positions * s <= dense_budget:
+            trans_pos = np.zeros((self.num_positions, s), np.float32)
+            np.add.at(trans_pos, (self.arc_src_pos, self.arc_dst),
+                      self.arc_w)
+        # states sorted by pdf, for the segment-sum obs-gather backward
+        spdf = np.asarray(self.state_pdf)
+        perm = np.argsort(spdf, kind="stable").astype(np.int32)
+        bounds = np.searchsorted(spdf[perm], np.arange(self.num_pdfs + 1)
+                                 ).astype(np.int32)
+        return FactoredDenGraph(
+            seg_bounds=np.asarray(self.seg_bounds, np.int32),
+            state_pdf=np.asarray(self.state_pdf, np.int32),
+            init=np.asarray(self.init, np.float32),
+            final=np.asarray(self.final, np.float32),
+            trans_pos=trans_pos, pdf_perm=perm, pdf_bounds=bounds,
+            arc_dst=dst, arc_src_pos=srcp, arc_w=w, dst_bounds=starts,
+            num_pdfs=self.num_pdfs)
 
     def to_blocked(self, superblocks: Optional[int] = None,
                    enter_pad: int = 4,

@@ -281,6 +281,7 @@ def apply_supernet(
     train: bool = False,
     bn_frozen: bool = False,
     dropout_p: Optional[float] = None,
+    mesh=None,
 ):
     """Supernet forward.
 
@@ -288,7 +289,10 @@ def apply_supernet(
     draws the path samples and, in training, the dropout masks (no dropout
     without one).  bn_frozen: stored BN stats even in training (the
     cv-update stage).  ``dropout_p`` overrides the base config's
-    proportion.
+    proportion.  ``mesh``: a data-parallel ``parallel.mesh.Mesh`` when
+    ``feats`` are this rank's rows of a global batch (batchnorm's
+    statistics, the dropout masks and per-sequence samples are then the
+    global batch's: each rank draws them whole and keeps its rows).
 
     Returns (chain_logits, xent_logits, new_bn_state, coefs), coefs the
     sampled or relaxed branch weights per sublayer.
@@ -297,18 +301,27 @@ def apply_supernet(
     dt = b.dtype
     bn_train = train and not bn_frozen
     p_drop = b.dropout_proportion if dropout_p is None else dropout_p
-    batch = feats.shape[0] if cfg.sample_per_sequence else None
+    world = 1 if mesh is None else mesh.size
+    batch = feats.shape[0] * world if cfg.sample_per_sequence else None
     new_bn, coefs = {}, {}
+
+    def local(draw):
+        """This rank's rows of a draw over the global batch."""
+        return draw if mesh is None else draw[mesh.rows(draw.shape[0])]
+
+    def coefs_of(alpha, share_index):
+        c = branch_coefs(alpha, mode, tau, generator, share_index, batch)
+        return c if batch is None else local(c)
 
     def dropout(x):
         if not train or generator is None or p_drop <= 0.0:
             return x
-        mask = draw_noise("bernoulli", (x.shape[0], 1, x.shape[-1]),
+        mask = draw_noise("bernoulli", (x.shape[0] * world, 1, x.shape[-1]),
                           generator, x.device, base._dropout_keep(p_drop))
-        return base._apply_dropout(x, mask, p_drop)
+        return base._apply_dropout(x, local(mask), p_drop)
 
     x = dropout(base._input_layers(b, params, bn_state, new_bn, feats,
-                                   ivectors, bn_train))
+                                   ivectors, bn_train, mesh))
     kc = cfg.num_candidates
     for i in range(cfg.num_layers):
         name = f"tdnnf{i + 2}"
@@ -319,10 +332,8 @@ def apply_supernet(
             # offsets 0..K-1 (share first); weights are stored with index
             # |offset|, so the linear side flips weights and coefs
             lin_off, aff_off = tuple(range(-(kc - 1), 1)), tuple(range(kc))
-            c_lin = branch_coefs(alphas["offsets_linear"][i], mode, tau,
-                                 generator, kc - 1, batch)
-            c_aff = branch_coefs(alphas["offsets_affine"][i], mode, tau,
-                                 generator, 0, batch)
+            c_lin = coefs_of(alphas["offsets_linear"][i], kc - 1)
+            c_aff = coefs_of(alphas["offsets_affine"][i], 0)
             bottleneck = spliced_linear(
                 x, torch.flip(p["linear"], (0,)), lin_off,
                 coef=torch.flip(c_lin, (-1,)), compute_dtype=dt).to(dt)
@@ -334,8 +345,7 @@ def apply_supernet(
             bottleneck = spliced_linear(x, p["linear"], lin_off,
                                         compute_dtype=dt).to(dt)
         if cfg.search_bottleneck:
-            c_bn = branch_coefs(alphas["bottleneck"][i], mode, tau,
-                                generator, None, batch)
+            c_bn = coefs_of(alphas["bottleneck"][i], None)
             mask = _bottleneck_mask(c_bn, cfg.bottleneck_groups).to(dt)
             bottleneck = bottleneck * (mask[None, None, :] if mask.ndim == 1
                                        else mask[:, None, :])
@@ -346,15 +356,18 @@ def apply_supernet(
         if c_aff is not None:
             coefs[f"{name}_affine"] = c_aff
         cur = torch.relu(cur)
-        cur, new_bn[name] = base._batchnorm(cur, bn_state[name], bn_train)
+        cur, new_bn[name] = base._batchnorm(cur, bn_state[name], bn_train,
+                                            mesh)
         cur = dropout(cur)
         lspan, rspan = -lin_off[0], aff_off[-1]
         prev = x[:, lspan: x.shape[1] - rspan] if (lspan or rspan) else x
         x = base._bypass(cur, prev, b.bypass_scale)
-    return _supernet_heads(cfg, params, bn_state, new_bn, x, bn_train, coefs)
+    return _supernet_heads(cfg, params, bn_state, new_bn, x, bn_train, coefs,
+                           mesh)
 
 
-def _supernet_heads(cfg, params, bn_state, new_bn, x, bn_train, coefs):
+def _supernet_heads(cfg, params, bn_state, new_bn, x, bn_train, coefs,
+                    mesh=None):
     """Subsample + prefinal/output heads.  Unlike the plain model's heads,
     the products stay float32 between layers, as in the reference."""
     b = cfg.base
@@ -369,10 +382,10 @@ def _supernet_heads(cfg, params, bn_state, new_bn, x, bn_train, coefs):
              + hp["affine_b"])
         h = torch.relu(h)
         h, new_bn[f"prefinal_{head}_big"] = base._batchnorm(
-            h, bn_state[f"prefinal_{head}_big"], bn_train)
+            h, bn_state[f"prefinal_{head}_big"], bn_train, mesh)
         h = torch.matmul(h.to(dt), hp["linear"].to(dt)).float()
         h, new_bn[f"prefinal_{head}_small"] = base._batchnorm(
-            h, bn_state[f"prefinal_{head}_small"], bn_train)
+            h, bn_state[f"prefinal_{head}_small"], bn_train, mesh)
         op = params[f"output_{head}"]
         outs.append(torch.matmul(h.to(dt), op["w"].to(dt)).float() + op["b"])
     return outs[0], outs[1], new_bn, coefs

@@ -184,16 +184,27 @@ def _init_bn_state(cfg: TdnnfModelConfig, device):
             for name, dim in _bn_dims(cfg)}
 
 
-def _batchnorm(x: torch.Tensor, stats, train: bool):
+def _batchnorm(x: torch.Tensor, stats, train: bool, mesh=None):
     """Kaldi-style batchnorm: pure normalization, no learned scale/offset.
 
     Returns (normalized, new_stats); x: [B, T, D], statistics over (B, T)
     in float32, output in x's dtype.  New running stats are detached.
+    Under a data-parallel ``mesh`` (``parallel.mesh.Mesh``; x is this
+    rank's rows) the statistics are the global batch's: the sums and
+    sums of squares go through a differentiable all-reduce, so the
+    gradient through the statistics is the global batch's too.
     """
     if train:
         xf = x.float()
-        mean = xf.mean(dim=(0, 1))
-        var = torch.square(xf).mean(dim=(0, 1)) - mean ** 2
+        if mesh is None:
+            mean = xf.mean(dim=(0, 1))
+            var = torch.square(xf).mean(dim=(0, 1)) - mean ** 2
+        else:
+            n = xf.shape[0] * xf.shape[1] * mesh.size
+            sums = mesh.all_reduce_grad(torch.stack(
+                [xf.sum(dim=(0, 1)), torch.square(xf).sum(dim=(0, 1))]))
+            mean = sums[0] / n
+            var = sums[1] / n - mean ** 2
         new_stats = {
             "mean": (BN_DECAY * stats["mean"]
                      + (1 - BN_DECAY) * mean).detach(),
@@ -222,14 +233,20 @@ def _apply_dropout(x: torch.Tensor, mask: torch.Tensor, p) -> torch.Tensor:
 
 
 def _dropout(x: torch.Tensor, p, generator: Optional[torch.Generator],
-             train: bool):
+             train: bool, mesh=None):
     """Per-dim dropout mask shared across time (Kaldi's
-    GeneralDropoutComponent); no dropout without a generator."""
+    GeneralDropoutComponent); no dropout without a generator.  Under a
+    data-parallel ``mesh`` every rank draws the global batch's mask from
+    the same generator state and keeps its own rows, so the ranks
+    together drop what one process would."""
     if not train or generator is None or p <= 0.0:
         return x
+    rows = x.shape[0] * (1 if mesh is None else mesh.size)
     mask = torch.bernoulli(
-        torch.full((x.shape[0], 1, x.shape[-1]), float(_dropout_keep(p)),
+        torch.full((rows, 1, x.shape[-1]), float(_dropout_keep(p)),
                    device=x.device), generator=generator)
+    if mesh is not None:
+        mask = mask[mesh.rows(rows)]
     return _apply_dropout(x, mask, p)
 
 
@@ -246,7 +263,7 @@ def _bypass(cur: torch.Tensor, prev: torch.Tensor, scale: float):
 
 
 def _input_layers(cfg: TdnnfModelConfig, params, bn_state, new_bn, feats,
-                  ivectors, bn_train: bool) -> torch.Tensor:
+                  ivectors, bn_train: bool, mesh=None) -> torch.Tensor:
     """lda (splice -1,0,1 + appended constant-t ivector, fixed affine) and
     tdnn1 (affine, ReLU, batchnorm); writes tdnn1's stats into new_bn.
     Shared by the plain model and the supernet."""
@@ -265,7 +282,7 @@ def _input_layers(cfg: TdnnfModelConfig, params, bn_state, new_bn, feats,
     x = (torch.matmul(x, params["tdnn1"]["w"].to(dt)).float()
          + params["tdnn1"]["b"]).to(dt)
     x = torch.relu(x)
-    x, new_bn["tdnn1"] = _batchnorm(x, bn_state["tdnn1"], bn_train)
+    x, new_bn["tdnn1"] = _batchnorm(x, bn_state["tdnn1"], bn_train, mesh)
     return x
 
 
@@ -280,6 +297,7 @@ def apply_model(
     dropout_p: Optional[float] = None,
     post_bn_scales=None,
     layer_activations=None,
+    mesh=None,
 ):
     """Forward pass.
 
@@ -293,22 +311,26 @@ def apply_model(
     activation times a float32 scale is float32, and the layers after it
     see that.  ``layer_activations``: optional {layer_name: callable}
     replacing the ReLU of individual tdnnf layers (GP activations,
-    models/bayes.py).
+    models/bayes.py).  ``mesh``: a data-parallel ``parallel.mesh.Mesh``
+    when ``feats`` are this rank's rows of a global batch (batchnorm's
+    statistics and the dropout masks are then the global batch's).
 
     Returns (chain_logits [B, T_out, P], xent_logits [B, T_out, P],
     new_bn_state) at the subsampled rate, logits in float32.
     """
     new_bn = {}
     dp = cfg.dropout_proportion if dropout_p is None else dropout_p
-    x = _input_layers(cfg, params, bn_state, new_bn, feats, ivectors, train)
+    x = _input_layers(cfg, params, bn_state, new_bn, feats, ivectors, train,
+                      mesh)
     x = _scale(x, post_bn_scales, "tdnn1")
-    x = _dropout(x, dp, generator, train)
+    x = _dropout(x, dp, generator, train, mesh)
 
     chain, xent = tdnnf_stack_and_heads(cfg, params, bn_state, new_bn, x,
                                         train, generator, consumed_left=1,
                                         dropout_p=dp,
                                         post_bn_scales=post_bn_scales,
-                                        layer_activations=layer_activations)
+                                        layer_activations=layer_activations,
+                                        mesh=mesh)
     return chain, xent, new_bn
 
 
@@ -323,13 +345,13 @@ def _scale(x: torch.Tensor, scales, name: str) -> torch.Tensor:
 def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
                           x, train, generator, consumed_left: int = 1,
                           dropout_p: float = 0.0, post_bn_scales=None,
-                          layer_activations=None):
+                          layer_activations=None, mesh=None):
     """The tdnnf stack + prefinal/output heads on a hidden sequence x.
 
     consumed_left: original-frame position of x's frame 0, which fixes the
-    phase of the rate-optimized subsample; ``post_bn_scales`` and
-    ``layer_activations`` as in :func:`apply_model`.  Shared by the plain
-    and the CNN front-end models.
+    phase of the rate-optimized subsample; ``post_bn_scales``,
+    ``layer_activations`` and ``mesh`` as in :func:`apply_model`.  Shared
+    by the plain and the CNN front-end models.
     """
     dt = cfg.dtype
     fs = cfg.frame_subsampling_factor
@@ -356,9 +378,9 @@ def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
                              bias=p["affine_b"], compute_dtype=dt).to(dt)
         act = (layer_activations or {}).get(name, torch.relu)
         cur = act(cur)
-        cur, new_bn[name] = _batchnorm(cur, bn_state[name], train)
+        cur, new_bn[name] = _batchnorm(cur, bn_state[name], train, mesh)
         cur = _scale(cur, post_bn_scales, name)
-        cur = _dropout(cur, dropout_p, generator, train)
+        cur = _dropout(cur, dropout_p, generator, train, mesh)
         prev = x[:, l: x.shape[1] - r] if (l or r) else x
         x = _bypass(cur, prev, cfg.bypass_scale)
 
@@ -373,10 +395,10 @@ def tdnnf_stack_and_heads(cfg: TdnnfModelConfig, params, bn_state, new_bn,
              + hp["affine_b"]).to(dt)
         h = torch.relu(h)
         h, new_bn[f"prefinal_{head}_big"] = _batchnorm(
-            h, bn_state[f"prefinal_{head}_big"], train)
+            h, bn_state[f"prefinal_{head}_big"], train, mesh)
         h = torch.matmul(h.to(dt), hp["linear"].to(dt)).to(dt)
         h, new_bn[f"prefinal_{head}_small"] = _batchnorm(
-            h, bn_state[f"prefinal_{head}_small"], train)
+            h, bn_state[f"prefinal_{head}_small"], train, mesh)
         op = params[f"output_{head}"]
         outs.append(torch.matmul(h.to(dt), op["w"].to(dt)).float() + op["b"])
     return outs[0], outs[1]

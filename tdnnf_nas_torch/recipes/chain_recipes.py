@@ -10,7 +10,9 @@ stages as Python functions.
                     ``graphs.fsa.StateGraph`` and its
                     ``ops.fwdbwd.DenGraphArrays``); a higher-order LM, a
                     left-2 or a +-1 tree gives the composed den FSA in
-                    superblocked form.  ``DataBundle.egs`` cuts the chunks for a model's
+                    superblocked form, or in position-factored form
+                    when the superblocked one is over its budget.
+                    ``DataBundle.egs`` cuts the chunks for a model's
                     (or supernet's) receptive field.
   train_model       the iteration loop (`steps/nnet3/chain/train.py`),
                     fed by ``batch_iterator`` or a TEGS shard's native
@@ -31,7 +33,8 @@ stages as Python functions.
                     (C++ decoder, forked workers) with lattices on the
                     host, then WER (``steps/nnet3/decode.sh`` + scoring)
 
-The data-parallel mesh waits for a later slice.
+``train_model(mesh=)`` trains data parallel over a
+``parallel.mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -69,8 +72,10 @@ from tdnnf_nas_torch.models.tdnnf import (TdnnfModelConfig, apply_model,
                                           model_context)
 from tdnnf_nas_torch.nas.search import (child_config_from_arch,
                                         extract_bottlenecks, extract_offsets)
-from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph, DenGraphArrays
-from tdnnf_nas_torch.parallel.mesh import prefetch_to_device
+from tdnnf_nas_torch.graphs import den_graph as host_den
+from tdnnf_nas_torch.ops.fwdbwd import (BlockedDenGraph, DenGraphArrays,
+                                        FactoredDenGraph)
+from tdnnf_nas_torch.parallel.mesh import prefetch_to_device, put_replicated
 from tdnnf_nas_torch.train.trainer import (TrainerConfig, TrainState,
                                            init_train_state, make_train_step)
 
@@ -84,7 +89,9 @@ class DataBundle:
     # dense: DenGraphArrays kept on the CPU on purpose
     # (DenGraphArrays.from_graph(den, dev) puts it on a device, see
     # den_on_device); composed: the host graphs.den_graph
-    # BlockedDenGraph (ops.fwdbwd.BlockedDenGraph.from_host)
+    # BlockedDenGraph (ops.fwdbwd.BlockedDenGraph.from_host) or, when
+    # to_blocked refuses the den, its FactoredDenGraph
+    # (ops.fwdbwd.FactoredDenGraph.from_host)
     den_arrays: object
     tree: object
     topo: object
@@ -162,12 +169,12 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
     The 95/5 split mirrors `Prepare_NAS_data.sh:5-7`.  ``phone_lm_order >
     2``, a tree with context_width > 2 or one with a right context takes
     the composed den FSA (for a +-1 tree the committed composition, whose
-    blocked export carries the wildcard term) and its blocked export,
-    which raises ValueError when it exceeds its size budget (the factored
-    fallback is not ported), with its dense
-    ``StateGraph`` in ``den`` when it has at most ``max_dense_states``
-    states (the phone decode's graph); otherwise the bigram LM gives the
-    dense den graph.
+    blocked export carries the wildcard term) and its blocked export or,
+    when that exceeds its size budget (ValueError), its factored export
+    (the +-1 den at the bench's scale), as the reference does, with its
+    dense ``StateGraph`` in ``den`` when it has at most
+    ``max_dense_states`` states (the phone decode's graph); otherwise the
+    bigram LM gives the dense den graph.
     """
     n_dev = max(1, int(len(utts) * dev_fraction))
     dev, train = utts[:n_dev], utts[n_dev:]
@@ -189,8 +196,12 @@ def prepare_data(utts, phone_seqs, tree, topo, num_phones: int,
                                  num_extra_lm_states=num_extra_lm_states)
     comp = compile_denominator_fsa(lm, topo, tree)
     den = comp.to_state_graph() if comp.num_states <= max_dense_states else None
+    try:
+        den_arrays = comp.to_blocked()
+    except ValueError:  # the padded blocks are over their budget
+        den_arrays = comp.to_factored()
     return DataBundle(
-        lm=lm, den=den, den_arrays=comp.to_blocked(), tree=tree, topo=topo,
+        lm=lm, den=den, den_arrays=den_arrays, tree=tree, topo=topo,
         train_utts=train, dev_utts=dev, num_phones=num_phones,
         den_fsa=comp, train_ivectors=iv_train, dev_ivectors=iv_dev,
     )
@@ -202,6 +213,8 @@ def den_on_device(bundle: DataBundle, device):
         if torch.device(device).type == "cpu":
             return bundle.den_arrays
         return DenGraphArrays.from_graph(bundle.den, device)
+    if isinstance(bundle.den_arrays, host_den.FactoredDenGraph):
+        return FactoredDenGraph.from_host(bundle.den_arrays, device)
     return BlockedDenGraph.from_host(bundle.den_arrays, device)
 
 
@@ -224,6 +237,7 @@ def train_model(
     log_every: int = 0,
     max_phones_per_chunk: int = 24,
     device=DEFAULT_DEVICE,
+    mesh=None,
 ) -> Tuple[TrainState, MetricsLogger]:
     """The iteration loop (`train.py:473-570` equivalent).
 
@@ -242,16 +256,24 @@ def train_model(
     ``log_every`` prints step/objf/rate progress.  Chunks with more than
     ``max_phones_per_chunk`` phones are dropped (``DataBundle.egs``; the
     reference always takes its default, 24).
+
+    With a data-parallel ``mesh`` (``parallel.mesh.make_mesh``) every
+    rank calls train_model with the same arguments and runs on the
+    mesh's device in place of ``device``: the state is rank 0's
+    (``put_replicated``), ``batch_size`` is the global batch, of which
+    each rank steps on its rows, and rank 0 alone writes checkpoints.
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     state = init_state
     if state is None:
         state = init_train_state(model_cfg, trainer_cfg,
                                  torch.Generator().manual_seed(seed),
                                  device, supernet=supernet)
+    if mesh is not None:
+        state = put_replicated(state, mesh)
     step = make_train_step(model_cfg, trainer_cfg,
                            den_on_device(bundle, device), seed=seed + 1,
-                           supernet=supernet)
+                           supernet=supernet, mesh=mesh)
     metrics = metrics or MetricsLogger()
     meta = {"model": asdict_config(model_cfg),
             "trainer": asdict_config(trainer_cfg), "supernet": supernet}
@@ -270,6 +292,10 @@ def train_model(
         host = batch_iterator(chunks, batch_size=batch_size,
                               rng=np.random.RandomState(seed))
     host = itertools.islice(host, num_steps)
+    if mesh is not None:  # this rank's rows of each global batch
+        host = (convert.map_batch(lambda _, a: a[mesh.rows(len(a))], b)
+                for b in host)
+    writer = mesh is None or mesh.rank == 0
     it = (prefetch_to_device(host, size=prefetch, device=device) if prefetch
           else (convert.batch_to_torch(b, device) for b in host))
     t_last, i_last = time.time(), 0
@@ -284,13 +310,14 @@ def train_model(
                 print(f"[train] step {i + 1}/{num_steps} "
                       f"objf_mmi={metrics.last('objf_mmi'):.4f} "
                       f"({rate:.1f} steps/s)", flush=True)
-            if ckpt_dir and ckpt_interval and (i + 1) % ckpt_interval == 0:
+            if (writer and ckpt_dir and ckpt_interval
+                    and (i + 1) % ckpt_interval == 0):
                 save_checkpoint(ckpt_dir, i + 1, state, meta)
     finally:
         it.close()  # a prefetcher stops and joins its worker first
         if loader is not None:
             loader.close()
-    if ckpt_dir:
+    if writer and ckpt_dir:
         save_checkpoint(ckpt_dir, num_steps, state, meta)
     return state, metrics
 

@@ -20,8 +20,11 @@ from tdnnf_nas_torch.core.config import Config
 from tdnnf_nas_torch.graphs.supervision import ChunkSupervision
 from tdnnf_nas_torch.ops.dense_den_cuda import pallas_forward_score
 from tdnnf_nas_torch.ops.fwdbwd import (BlockedDenGraph, DenGraphArrays,
-                                        forward_score_blocked,
-                                        forward_score_linear)
+                                        FactoredDenGraph, SparseDenGraph,
+                                        forward_score, forward_score_blocked,
+                                        forward_score_factored,
+                                        forward_score_linear,
+                                        forward_score_sparse)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,34 +38,47 @@ class ChainObjectiveConfig(Config):
     # versions serve the CPU
     pallas_den: bool = False
     # keep the expanded per-slot observations of the blocked den in bf16
-    # (the recursion stays float32)
+    # (the recursion stays float32); the factored, sparse and dense dens
+    # take float32 observations, as in the reference
     den_obs_bf16: bool = False
 
 
 def chain_objective(
     chain_out: torch.Tensor,
     xent_out: torch.Tensor,
-    den: Union[BlockedDenGraph, DenGraphArrays],
+    den: Union[BlockedDenGraph, FactoredDenGraph, SparseDenGraph,
+               DenGraphArrays],
     sup: ChunkSupervision,
     cfg: ChainObjectiveConfig,
+    mesh=None,
 ):
     """(loss, metrics) for [B, T, P] head outputs and a batched
-    supervision of device tensors.  Metrics are detached tensors."""
-    if not isinstance(den, (BlockedDenGraph, DenGraphArrays)):
-        raise TypeError(
-            f"{type(den).__name__} denominators are not ported; the port "
-            "takes BlockedDenGraph and DenGraphArrays (the factored and "
-            "sparse graphs are not ported yet)")
-    if sup.next_w is None:
-        raise NotImplementedError(
-            "the dense numerator (no next_w) is not ported yet")
+    supervision of device tensors.  Metrics are detached tensors.
+
+    With a data-parallel ``mesh`` (``parallel.mesh.make_mesh``) the batch
+    is this rank's rows of the global batch: the loss is this rank's sum
+    over the global frame count, so the ranks' gradients add up to the
+    global batch's, and the metrics are all-reduced to the global
+    batch's values."""
+    if not isinstance(den, (BlockedDenGraph, FactoredDenGraph,
+                            SparseDenGraph, DenGraphArrays)):
+        raise TypeError(f"{type(den).__name__} is not a denominator graph "
+                        "(BlockedDenGraph, FactoredDenGraph, SparseDenGraph "
+                        "or DenGraphArrays)")
     b, t, _ = chain_out.shape
-    n_frames = b * t
+    world = 1 if mesh is None else mesh.size
+    n_frames = b * t * world
 
     if isinstance(den, BlockedDenGraph):
         logz_den = forward_score_blocked(chain_out, den,
                                          leaky_coef=cfg.leaky_hmm_coef,
                                          obs_bf16=cfg.den_obs_bf16)
+    elif isinstance(den, FactoredDenGraph):
+        logz_den = forward_score_factored(chain_out, den,
+                                          leaky_coef=cfg.leaky_hmm_coef)
+    elif isinstance(den, SparseDenGraph):
+        logz_den = forward_score_sparse(chain_out, den,
+                                        leaky_coef=cfg.leaky_hmm_coef)
     else:
         logz_den = pallas_forward_score(
             chain_out, den.trans, den.state_pdf, den.init, den.final,
@@ -74,9 +90,13 @@ def chain_objective(
     out_sg = chain_out.detach()
     with torch.enable_grad():
         o = out_sg.requires_grad_(True)
-        logz_num = forward_score_linear(o, sup.next_w, sup.state_pdf,
-                                        sup.init, sup.final, sup.mask,
-                                        sup.self_loop_prob)
+        if sup.next_w is not None:
+            logz_num = forward_score_linear(o, sup.next_w, sup.state_pdf,
+                                            sup.init, sup.final, sup.mask,
+                                            sup.self_loop_prob)
+        else:  # the dense [B, S, S] numerator graphs
+            logz_num = forward_score(o, sup.trans, sup.state_pdf, sup.init,
+                                     sup.final, mask=sup.mask)
         gamma, = torch.autograd.grad(logz_num.sum(), o)
     logz_num = logz_num.detach()
     out_sg = out_sg.detach()
@@ -87,8 +107,8 @@ def chain_objective(
     loss = -mmi
     metrics = {
         "objf_mmi": mmi.detach(),
-        "logz_num": logz_num.mean() / t,
-        "logz_den": logz_den.detach().mean() / t,
+        "logz_num": logz_num.mean() / world / t,
+        "logz_den": logz_den.detach().mean() / world / t,
     }
     if cfg.out_l2_regularize > 0.0:
         l2 = torch.square(chain_out).sum() / (2.0 * n_frames)
@@ -100,4 +120,6 @@ def chain_objective(
         loss = loss - cfg.xent_regularize * xent_objf
         metrics["objf_xent"] = xent_objf.detach()
     metrics["loss"] = loss.detach()
+    if mesh is not None:
+        metrics = mesh.all_reduce_metrics(metrics)
     return loss, metrics

@@ -55,9 +55,13 @@ class OptimizerConfig(Config):
 
 
 def learning_rate_at(step: int, cfg: OptimizerConfig) -> float:
-    """Exponential decay lr_initial -> lr_final over num_steps."""
-    frac = min(max(step / max(cfg.num_steps, 1), 0.0), 1.0)
-    return cfg.lr_initial * (cfg.lr_final / cfg.lr_initial) ** frac
+    """Exponential decay lr_initial -> lr_final over num_steps, in the
+    reference's float32 arithmetic on an int32 step."""
+    f32 = np.float32
+    frac = np.clip(f32(np.int32(step)) / f32(max(cfg.num_steps, 1)),
+                   f32(0.0), f32(1.0))
+    return float(f32(cfg.lr_initial)
+                 * f32(cfg.lr_final / cfg.lr_initial) ** frac)
 
 
 def tree_paths(tree, prefix=()):
@@ -164,13 +168,15 @@ def make_optimizer(
 
     @torch.no_grad()
     def update_fn(grads, opt_state, params, step: int, lr_scale=1.0):
-        lr = learning_rate_at(step, cfg) * lr_scale
+        lr = float(np.float32(learning_rate_at(step, cfg))
+                   * np.float32(lr_scale))
         pl = tree_paths(params)
         paths = [path for path, _ in pl]
         if cfg.kind == "adam":
-            t = step + 1.0
-            bc1 = 1.0 - cfg.beta1 ** t
-            bc2 = 1.0 - cfg.beta2 ** t
+            # bias corrections in float32, as the reference computes them
+            t = np.float32(np.int32(step)) + np.float32(1.0)
+            bc1 = float(np.float32(1.0) - np.float32(cfg.beta1) ** t)
+            bc2 = float(np.float32(1.0) - np.float32(cfg.beta2) ** t)
             new_m = [cfg.beta1 * tree_get(opt_state["m"], p)
                      + (1 - cfg.beta1) * g for p, g in zip(paths, grads)]
             new_v = [cfg.beta2 * tree_get(opt_state["v"], p)

@@ -15,16 +15,16 @@ floats).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from tdnnf_nas_torch.core.config import Config
 from tdnnf_nas_torch.core.device import DEFAULT_DEVICE, resolve_device
+from tdnnf_nas_torch.core.prng import fold_in_step
 from tdnnf_nas_torch.models import nas as nas_mod
 from tdnnf_nas_torch.models import tdnnf as tdnnf_mod
-from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph, DenGraphArrays
 from tdnnf_nas_torch.ops.semiorth import (semi_orthogonal_step,
                                           semi_orthogonal_step_3d)
 from tdnnf_nas_torch.train.objective import (ChainObjectiveConfig,
@@ -141,15 +141,14 @@ def step_seed(seed: int, step: int) -> int:
     """The seed of the draws of step ``step``: a function of (seed, step)
     alone, as the reference's ``fold_in(key, state.step)``
     (`train/trainer.py:198` there), so a run resumed from a checkpoint
-    draws at step k what an unbroken run draws there."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
-        1, np.uint64)[0])
+    draws at step k what an unbroken run draws there
+    (``core.prng.fold_in_step``)."""
+    return fold_in_step(seed, step)
 
 
-def make_train_step(model_cfg, trainer_cfg: TrainerConfig,
-                    den: Union[BlockedDenGraph, DenGraphArrays],
+def make_train_step(model_cfg, trainer_cfg: TrainerConfig, den,
                     seed: Optional[int] = None,
-                    supernet: bool = False):
+                    supernet: bool = False, mesh=None):
     """Build the train step.
 
     step(state, batch) -> (new_state, metrics)
@@ -161,13 +160,25 @@ def make_train_step(model_cfg, trainer_cfg: TrainerConfig,
     gumbel search modes need one, and without it there is no dropout.
     Parameter gradients are always taken, for ``grad_norm``, even when
     ``train_theta`` is off (as in the reference); alpha gradients only
-    when ``train_alpha`` is on.
+    when ``train_alpha`` is on.  ``den`` is any den graph that
+    ``train.objective.chain_objective`` takes.
+
+    With a data-parallel ``mesh`` (``parallel.mesh.make_mesh``), every
+    rank calls the step with the same replicated state
+    (``parallel.mesh.put_replicated``) and its rows of the global batch
+    (``parallel.mesh.put_batch``): batchnorm's statistics, the dropout
+    masks and a supernet's per-sequence samples are the global batch's,
+    the loss is each rank's share of the global objective, and the
+    gradients are sum-all-reduced before ``grad_norm``, max-change and the
+    update, so each rank takes the one-process step of the global batch.
+    The metrics are the global batch's.
     """
     _, opt_update = make_optimizer(trainer_cfg.optimizer, _wd_scale)
     _, alpha_update = make_optimizer(trainer_cfg.optimizer)
     num_steps = trainer_cfg.optimizer.num_steps
     interval = trainer_cfg.semiorth_interval
     base_cfg = model_cfg.base if supernet else model_cfg
+    world = 1 if mesh is None else mesh.size
     generators = {}  # one per device, reseeded at every step
 
     def step(state: TrainState, batch):
@@ -189,27 +200,33 @@ def make_train_step(model_cfg, trainer_cfg: TrainerConfig,
                 model_cfg, params, alphas, state.bn_state, batch["feats"],
                 batch.get("ivectors"), mode=trainer_cfg.search_mode, tau=tau,
                 generator=generator, train=True,
-                bn_frozen=trainer_cfg.bn_frozen, dropout_p=dropout_p)
+                bn_frozen=trainer_cfg.bn_frozen, dropout_p=dropout_p,
+                mesh=mesh)
         else:
             chain_out, xent_out, new_bn = tdnnf_mod.apply_model(
                 model_cfg, params, state.bn_state, batch["feats"],
                 batch.get("ivectors"), train=True, generator=generator,
-                dropout_p=dropout_p)
+                dropout_p=dropout_p, mesh=mesh)
         loss, metrics = chain_objective(chain_out, xent_out, den,
-                                        batch["sup"], trainer_cfg.objective)
+                                        batch["sup"], trainer_cfg.objective,
+                                        mesh=mesh)
+        # the alpha-only terms are replicated: each rank adds its share,
+        # and the all-reduced gradient holds each term once
         if (supernet and trainer_cfg.flops_coef > 0.0
                 and "bottleneck" in alphas):
             ef = nas_mod.expected_flops(alphas["bottleneck"], model_cfg, tau)
-            loss = loss + trainer_cfg.flops_coef * ef
+            loss = loss + trainer_cfg.flops_coef * ef / world
             metrics["expected_bottleneck"] = ef.detach() / model_cfg.num_layers
         if supernet and trainer_cfg.alpha_entropy_coef > 0.0:
             ent = 0.0
             for _, a in tree_paths(alphas):
                 p = torch.softmax(a, dim=-1)
                 ent = ent + torch.sum(-p * torch.log(p + 1e-20))
-            loss = loss + trainer_cfg.alpha_entropy_coef * ent
+            loss = loss + trainer_cfg.alpha_entropy_coef * ent / world
             metrics["alpha_entropy"] = ent.detach()
         grads = torch.autograd.grad(loss, p_leaves + a_leaves)
+        if mesh is not None:
+            grads = mesh.all_reduce_sum(grads)
         g_params, g_alphas = grads[:len(p_leaves)], grads[len(p_leaves):]
         with torch.no_grad():
             new_params, new_opt = state.params, state.opt_state
@@ -238,8 +255,7 @@ def make_train_step(model_cfg, trainer_cfg: TrainerConfig,
     return step
 
 
-def make_valid_step(model_cfg, trainer_cfg: TrainerConfig,
-                    den: Union[BlockedDenGraph, DenGraphArrays],
+def make_valid_step(model_cfg, trainer_cfg: TrainerConfig, den,
                     supernet: bool = False):
     """Eval-mode objective (stored BN stats, no sampling), the
     compute_prob_valid equivalent (`train.py:590-627`): a supernet mixes

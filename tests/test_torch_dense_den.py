@@ -223,8 +223,8 @@ def test_cpu_dispatch_uses_plain_scan():
 
 
 def test_chain_objective_refuses_unported_den():
-    """Only the blocked and the dense dens are ported; any other graph
-    (the reference's factored and sparse ones) raises TypeError."""
+    """The blocked, factored, sparse and dense dens are ported (the
+    reference's four); any other object raises TypeError."""
     from tdnnf_nas_torch.train import ChainObjectiveConfig, chain_objective
 
     out = torch.zeros(1, 2, 3)

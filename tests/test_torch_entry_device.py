@@ -17,6 +17,8 @@ from tdnnf_nas_torch.gmm import ladder
 from tdnnf_nas_torch.lm import rnnlm
 from tdnnf_nas_torch.models import bayes, cnn, lhuc, nas, tdnnf
 from tdnnf_nas_torch.ops import extras
+from tdnnf_nas_torch.parallel import mesh as mesh_mod
+from tdnnf_nas_torch.parallel import multihost
 from tdnnf_nas_torch.recipes import chain_recipes
 from tdnnf_nas_torch.tools import e2e_flagship
 from tdnnf_nas_torch.train import trainer
@@ -67,6 +69,8 @@ _ENTRY_POINTS = {
     "opt_state_from_numpy": (convert.opt_state_from_numpy, ({},)),
     "am_gmm_from_jax": (convert.am_gmm_from_jax, (None,)),
     "ladder_result_from_jax": (convert.ladder_result_from_jax, (None,)),
+    "make_mesh": (mesh_mod.make_mesh, ()),
+    "global_mesh": (multihost.global_mesh, ()),
 }
 
 
@@ -118,3 +122,49 @@ def test_explicit_cpu_runs_without_cuda(monkeypatch):
     tree = convert.tree_to_torch({"a": np.ones(3, np.float32)}, device="cpu")
     assert tree["a"].device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_initialize_from_env_defaults_to_nccl_on_the_card(monkeypatch):
+    """With the coordinator's address set, the default device picks the
+    NCCL backend, and without a card it raises before any connection is
+    tried; no other backend is tried."""
+    assert (inspect.signature(multihost.initialize_from_env)
+            .parameters["device"].default == DEFAULT_DEVICE)
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1")
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    monkeypatch.setenv("PROCESS_ID", "0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda **kw: calls.append(kw))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize_from_env()
+    assert calls == []
+    assert multihost.initialize_from_env(device="cpu") is True
+    assert calls[-1]["backend"] == "gloo"
+    assert calls[-1]["init_method"] == "tcp://localhost:1"
+    assert multihost.initialize_from_env(backend="nccl",
+                                         device="cpu") is True
+    assert calls[-1]["backend"] == "nccl"
+
+
+def test_train_model_mesh_takes_the_mesh_device():
+    """train_model's mesh argument defaults to None (one process on
+    ``device``); a mesh brings its own device, which make_mesh resolved
+    from its own card default."""
+    params = inspect.signature(chain_recipes.train_model).parameters
+    assert params["mesh"].default is None
+    assert params["device"].default == DEFAULT_DEVICE
+    assert (inspect.signature(trainer.make_train_step)
+            .parameters["mesh"].default is None)
+
+
+def test_factored_and_sparse_den_converters_need_a_device():
+    """The factored and sparse dens' device copies, and den_on_device,
+    have no default device, as BlockedDenGraph.from_host has none."""
+    from tdnnf_nas_torch.ops.fwdbwd import FactoredDenGraph, SparseDenGraph
+
+    for fn in (FactoredDenGraph.from_host, SparseDenGraph.from_graph,
+               SparseDenGraph.from_arcs, chain_recipes.den_on_device):
+        dev = inspect.signature(fn).parameters["device"]
+        assert dev.default is inspect.Parameter.empty, fn.__qualname__
