@@ -14,7 +14,8 @@ speaker adaptation, then the tri5_7d path (GMM ladder, +-1 tree,
 committed den with its wildcard term), then the front end, the
 optimizer kinds and the Bayes/GP and CNN-TDNN-F families, then the
 bench-scale +-1 den through the factored scan and data parallel over
-two ranks.  Checks the
+two ranks, then the whole flagship run of ``tools/e2e_flagship``.
+Checks the
 hand-written CUDA kernels of each path
 against their plain PyTorch versions.  Phases, each raising on failure:
 
@@ -98,13 +99,15 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      500 Adam steps at batch 64 on the LM text and training transcripts
      (the reference runs 4,000): ms/step, held-out perplexity on the
      test transcripts, its log-probs on the card against the CPU (1e-4);
-     20-best lists rescored in batches (interpolation 0.5: WER); every
+     20-best lists (at most 20,000 A* pops each) rescored in batches
+     (interpolation 0.5: WER); every
      lattice rescored frontier-batched (WER, s/lattice, device calls),
      and the 3 shortest also by the incremental rescorer (same words,
      scores within 1e-4); then LHUC (``tools/e2e_flagship``, stage 7):
      the blocked pair against its plain version at B = 16 on phase 8's
      den, with phase 2's checks, times and bounds; launch counters
-     reset, 24 SGD steps a test speaker at B = 16 and the adapted decode
+     reset, 24 SGD steps a speaker of the first 20 test utterances at
+     B = 16 and the adapted decode
      (WER before and after, ms/step, objf finite at every step, each
      blocked kernel once a step, each speaker's largest adapted logit
      non-zero); one float32 LHUC step on the card against the CPU's
@@ -176,7 +179,26 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      the batch's rows, and its params apart only where the gradient is
      rounding noise; every rank's params equal; each rank launches each
      blocked kernel once a step; then one ``adam`` step of a one-rank
-     NCCL group; ms/step of each.
+     NCCL group; ms/step of each;
+ 14. (``_e2e_phase``) the whole flagship run in this process:
+     ``tools/e2e_flagship.main(["all", "--smoke", "--out", TMP])``, the
+     reference's nine stages at its smoke sizes with the 7q at full
+     width, after checking that phase 13 left no process group, with no
+     bootstrap cache; each stage's seconds and the run's WERs and objfs
+     beside the reference's full-scale figures (printed, never held);
+     checked: the three files' keys, every objf finite, every WER finite
+     and >= 0, ``delta_wer`` the difference of the two WERs, the den's
+     blocked form, each blocked kernel launched once per training,
+     supernet, cv-update, child and LHUC step and the forward once more
+     per valid batch (steps counted from the run's metrics), 5 or 6
+     table rows of 14 stride pairs with ``manual_baseline`` at stage
+     4's parameter count; then one float32 step of the run's model on
+     its den through the kernels against the plain scan (objf 1e-4,
+     ``grad_norm`` 1e-3 relative).
+
+Each phase prints ``[phase N name] start`` before it and ``[phase N
+name] ok <s> s`` after it; a failure prints ``[phase N name] FAILED:``
+with the exception and its traceback on stdout, then raises.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
@@ -184,7 +206,8 @@ three TF32 tensor-core passes ``bound_ms_3xtf32``,
 ``launches_per_scan`` and, for the blocked pair, each of phase 2's
 fields again at LHUC's batch with the suffix ``_b16`` and on phase 10's
 +-1 den with the suffix ``_pm1``; the blocked rows' launches include
-phase 11's steps and phase 13's, every rank's), and as its last
+phase 11's steps, phase 13's, every rank's, and phase 14's), and as
+its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
@@ -202,6 +225,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 from unittest import mock
 
 import numpy as np
@@ -1167,11 +1191,15 @@ def _rel_ok(a, b, rtol: float, atol: float = 0.0) -> bool:
 
 # Phase 8's sizes: the smoke word corpus of scripts/e2e_flagship.py:70-84
 # (vocab 2,500, 4,000 LM text sentences) at 800 utterances, 40 held out.
+# Phase 9 searches each 20-best list for at most 20,000 A* pops (the
+# reference's 200,000 took ~50 s on lattices with fewer than 20 sequences)
+# and adapts the speakers of the first 20 test utterances: phase 14 runs
+# the reference's own n-best and LHUC, and the script keeps to its clock.
 DECODE_SIZES = dict(num_utts=800, vocab_size=2500, num_text_sents=4000,
                     n_test=40, train_steps=200, n_check=4, n_numpy=3,
                     n_oracle=10, max_active=10000, ubm_utts=150,
                     tmat_utts=600, rnnlm_steps=500, nbest=20,
-                    n_incremental=3)
+                    nbest_pops=20000, n_lhuc=20, n_incremental=3)
 
 
 def _ivector_stage(torch, dev, gpu, utts, train):
@@ -1596,7 +1624,8 @@ def _adapt_rescore_phase(torch, dev, gpu, ctx):
 
     # ---- 9.2 batched n-best rescoring (e2e_flagship.py:369-375) ----
     t0 = time.perf_counter()
-    nbests = [lattice_nbest(lat, n=sz["nbest"]) for lat in rep["lattices"]]
+    nbests = [lattice_nbest(lat, n=sz["nbest"], max_pops=sz["nbest_pops"])
+              for lat in rep["lattices"]]
     t_nb = time.perf_counter() - t0
     t0 = time.perf_counter()
     bests = rescore_nbest_rnnlm_batched(nbests, ctx["lm3"], scorer,
@@ -1605,7 +1634,8 @@ def _adapt_rescore_phase(torch, dev, gpu, ctx):
     t_resc = time.perf_counter() - t0
     wer_nb = score_corpus(refs, [b[0] for b in bests])["wer"]
     print(f"[rnnlm n-best] {sum(map(len, nbests))} hypotheses "
-          f"({sz['nbest']}-best lists in {t_nb:.1f} s) rescored in "
+          f"({sz['nbest']}-best lists, at most {sz['nbest_pops']:,} pops "
+          f"each, in {t_nb:.1f} s) rescored in "
           f"{t_resc:.2f} s, interpolation 0.5: WER {wer_nb:.2f}% "
           f"(first pass {rep['wer']:.2f}%)", flush=True)
     _check(wer_nb < 100.0, "n-best RNNLM WER below 100%")
@@ -1655,10 +1685,11 @@ def _adapt_rescore_phase(torch, dev, gpu, ctx):
     bdc.blocked_den_fwd_cuda.launches = 0
     bdc.blocked_den_bwd_cuda.launches = 0
     t0 = time.perf_counter()
+    n_lhuc = sz["n_lhuc"]
     res = lhuc_adapt_and_decode(
-        bundle, ctx["topo"], ctx["tree"], ctx["g"], test, refs,
-        ctx["iv_test"], ctx["tc"].objective, mc, state, True, rep["hyps"],
-        on_step=on_step, device=dev)
+        bundle, ctx["topo"], ctx["tree"], ctx["g"], test[:n_lhuc],
+        refs[:n_lhuc], ctx["iv_test"][:n_lhuc], ctx["tc"].objective, mc,
+        state, True, rep["hyps"][:n_lhuc], on_step=on_step, device=dev)
     t_lhuc = time.perf_counter() - t0
     launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
                 "bwd": bdc.blocked_den_bwd_cuda.launches}
@@ -3363,12 +3394,209 @@ def _dp_phase(torch, dev, gpu, host_den, host_batches):
     return {"fwd": int(n[0]), "bwd": int(n[1])}
 
 
-def main() -> int:
-    import torch
+# Phase 14: the whole flagship run of tools/e2e_flagship at the reference's
+# smoke sizes.  The keys each of the reference's three files holds
+# (scripts/e2e_flagship.py:93-98, 157-159, 195-196, 223-224, 298-301,
+# 314-315, 325, 338, 380, 397, 422-423, 460; :446-455; :689-710) ...
+E2E_KEYS = {
+    "e2e": {"corpus", "gmm", "ivectors", "tree_pdfs", "den_states", "train",
+            "hclg", "wer_first_pass_tg", "wer_4gram_rescore",
+            "wer_rnnlm_rescore", "lhuc", "lhuc_noiv", "bf16_parity"},
+    "corpus": {"vocab", "phones", "train_utts", "test_utts", "audio_hours",
+               "noise", "speakers", "lm_text_sents"},
+    "gmm": {"fmllr_gain", "train_subset", "seconds"},
+    "ivectors": {"dim", "within_spk_cos", "between_spk_cos"},
+    "train": {"steps", "objf_mmi", "params", "seconds", "egs_stats"},
+    "hclg": {"states", "arcs", "build_s"},
+    "lhuc": {"speakers", "utts", "wer_before", "wer_after"},
+    "lhuc_noiv": {"speakers", "utts", "wer_before", "wer_after",
+                  "wer_unadapted_full"},
+    "bf16_parity": {"delta_wer"},
+    "bf16": {"bfloat16", "float32", "delta_wer", "note"},
+    "dtype": {"objf_final", "objf_curve_10", "wer"},
+    "search": {"scale", "alpha_entropy", "alpha_entropy_seed2",
+               "alpha_entropy_uniform", "cv_steps", "top1_logprob",
+               "seed_top1_agreement", "table"},
+    "row": {"strides", "lookahead_reach", "params", "train_objf", "dev_objf",
+            "wer"},
+}
+# ... and the reference's own full-scale figures (docs/e2e_flagship.json,
+# bf16_parity.json, search_table_flagship.json), printed beside the smoke
+# run's, never held: at 20 test utterances one word moves WER by ~0.7
+E2E_REFERENCE = {"wer_first_pass_tg": 7.44, "wer_4gram_rescore": 7.2,
+                 "wer_rnnlm_rescore": 7.39, "lhuc": "7.44 -> 7.34",
+                 "lhuc_noiv": "8.47 -> 8.47", "objf_mmi": -0.1068,
+                 "objf_final": "-0.2029 / -0.2034", "ab_wer": "10.43 / 10.43",
+                 "table": {"searched_top1": 11.11, "searched_top2": 9.45,
+                           "searched_seed2_top1": 11.11,
+                           "random_arch": 16.15, "random_arch2": 13.22,
+                           "manual_baseline": 10.43}}
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+
+def _walk(tree, path=()):
+    """(key path, leaf) of a JSON tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _e2e_phase(torch, dev, gpu):
+    """Phase 14: ``tools/e2e_flagship.main(["all", "--smoke", ...])`` in
+    this process, the flagship 7q at full width, no bootstrap cache, a
+    fresh output directory; then its three files' keys, finite objf and
+    WER, the A/B's WER difference, the den's blocked form, one launch of
+    each blocked kernel per training, supernet, cv-update, child and LHUC
+    step and of the forward per valid batch, the table's rows; then one
+    float32 step of the run's model and trainer on its den through the
+    kernels against the plain scan.  Returns the blocked launches of the
+    run."""
+    import tempfile
+
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.data.egs import batch_iterator
+    from tdnnf_nas_torch.graphs.den_graph import BlockedDenGraph
+    from tdnnf_nas_torch.models import count_params
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
+    from tdnnf_nas_torch.tools import e2e_flagship as e2e
+    from tdnnf_nas_torch.train import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    _check(not torch.distributed.is_initialized(),
+           "no process group left from phase 13")
+    torch.cuda.empty_cache()
+    _reset_blocked(bdc)
+    with tempfile.TemporaryDirectory() as out:
+        res = e2e.main(["all", "--smoke", "--out", out], device=dev)
+        files = {}
+        for what, name in e2e.Report.FILES.items():
+            with open(os.path.join(out, name)) as f:
+                files[what] = json.load(f)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_phase
+    launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
+                "bwd": bdc.blocked_den_bwd_cuda.launches}
+    rep, setup, sizes = res.report, res.setup, res.setup.sizes
+    mc, e2e_out, ab, search = (res.base.model_cfg, files["e2e"],
+                               files["bf16"], files["search"])
+    table = search["table"]
+    print(f"[e2e run] `main all --smoke` in {t_run:.1f} s (budget 420 s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in rep.seconds.items())
+          + f" ({gpu})", flush=True)
+    ref, lh, nv = E2E_REFERENCE, e2e_out["lhuc"], e2e_out["lhuc_noiv"]
+    print("[e2e figures] smoke run (reference's full-scale run): "
+          + ", ".join(f"{k} {e2e_out[k]} ({ref[k]})" for k in (
+              "wer_first_pass_tg", "wer_4gram_rescore", "wer_rnnlm_rescore"))
+          + f"; LHUC {lh['wer_before']} -> {lh['wer_after']} ({ref['lhuc']})"
+          f", no-iv {nv['wer_before']} -> {nv['wer_after']} "
+          f"({ref['lhuc_noiv']}); train objf {e2e_out['train']['objf_mmi']} "
+          f"({ref['objf_mmi']}); A/B objf {ab['bfloat16']['objf_final']} / "
+          f"{ab['float32']['objf_final']} ({ref['objf_final']}), WER "
+          f"{ab['bfloat16']['wer']} / {ab['float32']['wer']} "
+          f"({ref['ab_wer']}); table WER "
+          + ", ".join(f"{k} {v['wer']} ({ref['table'][k]})"
+                      for k, v in table.items()), flush=True)
+    print(f"[e2e setup] tree {e2e_out['tree_pdfs']} pdfs, den "
+          f"{e2e_out['den_states']} states "
+          f"({type(setup.bundle.den_arrays).__name__}), HCLG "
+          f"{e2e_out['hclg']['states']} states; model hidden "
+          f"{mc.hidden_dim}, bottleneck {mc.bottleneck_dim}, "
+          f"{1 + mc.num_tdnnf} layers, {e2e_out['train']['params']:,} "
+          f"params; steps {rep.steps}, LHUC steps {rep.lhuc_steps}, valid "
+          f"batches {rep.valid_batches}; launches fwd={launches['fwd']} "
+          f"bwd={launches['bwd']}", flush=True)
+    _check((mc.hidden_dim, mc.bottleneck_dim, mc.num_tdnnf) == (1536, 160, 14),
+           "the 7q at full width: 15 layers, hidden 1,536, bottleneck 160")
+    _check(isinstance(setup.bundle.den_arrays, BlockedDenGraph),
+           "the run's den took the blocked form")
+    # every key of the reference's three files
+    _check(set(e2e_out) == E2E_KEYS["e2e"]
+           and all(set(e2e_out[k]) == E2E_KEYS[k]
+                   for k in ("corpus", "gmm", "ivectors", "train", "hclg",
+                             "lhuc", "lhuc_noiv", "bf16_parity")),
+           "e2e_flagship.json holds the reference's keys")
+    _check(set(ab) == E2E_KEYS["bf16"]
+           and all(set(ab[d]) == E2E_KEYS["dtype"]
+                   for d in ("bfloat16", "float32")),
+           "bf16_parity.json holds the reference's keys")
+    _check(set(search) == E2E_KEYS["search"]
+           and all(set(r) == E2E_KEYS["row"] for r in table.values()),
+           "search_table_flagship.json holds the reference's keys")
+    # finite objf, finite WER >= 0 (insertions can take it past 100)
+    leaves = [(p, v) for what in files.values() for p, v in _walk(what)]
+    objf = [np.asarray(v, float) for p, v in leaves if "objf" in p[-1]]
+    wers = [v for p, v in leaves
+            if p[-1] == "wer" or p[-1].startswith("wer_")]
+    _check(len(objf) >= 12 and all(np.isfinite(a).all() and a.size
+                                   for a in objf),
+           "every objf finite")
+    _check(len(wers) >= 14 and all(np.isfinite(v) and v >= 0 for v in wers),
+           "every WER finite and >= 0")
+    d = round(ab["bfloat16"]["wer"] - ab["float32"]["wer"], 2)
+    _check(abs(ab["delta_wer"] - d) < 1e-9
+           and e2e_out["bf16_parity"]["delta_wer"] == ab["delta_wer"],
+           "delta_wer is the difference of the two WERs")
+    # one launch of each kernel per step, the forward once per valid batch
+    want = {"train": sizes.train_steps, "noiv": sizes.noiv_steps,
+            "ab_bfloat16": sizes.ab_steps, "ab_float32": sizes.ab_steps,
+            "supernet": sizes.pretrain_steps, "cv_1": sizes.cv_steps,
+            "cv_11": sizes.cv_steps,
+            **{f"child_{k}": sizes.child_steps for k in table}}
+    _check(rep.steps == want, "every train_model run took its steps")
+    n_steps = sum(rep.steps.values()) + rep.lhuc_steps
+    _check(rep.lhuc_steps == 24 * (e2e_out["lhuc"]["speakers"]
+                                   + e2e_out["lhuc_noiv"]["speakers"]),
+           "24 LHUC steps a speaker")
+    _check(launches == {"fwd": n_steps + rep.valid_batches, "bwd": n_steps},
+           "each blocked kernel once per step, the forward once more per "
+           "valid batch")
+    _check(len(table) in (5, 6) and rep.valid_batches == 6 * len(table),
+           "5 or 6 rows, each scored on 6 valid batches")
+    _check(table["manual_baseline"]["params"] == e2e_out["train"]["params"]
+           == count_params(res.base.state.params),
+           "manual_baseline's params are stage 4's 7q's")
+    _check(all(len(r["strides"]) == 14 for r in table.values()),
+           "14 stride pairs a row")
+
+    # one float32 step of the run's model and trainer on its den,
+    # through the kernels and through the plain scan (phase 4's bars)
+    cfg32 = e2e.model_config(setup.tree, setup.cfg, dtype="float32")
+    tc32 = e2e.trainer_config(sizes.train_steps)
+    host = next(batch_iterator(setup.bundle.egs(cfg32, chunk_width=50), 64,
+                               np.random.RandomState(0)))
+    batch = convert.batch_to_torch(host, dev)
+    st0 = init_train_state(cfg32, tc32, torch.Generator().manual_seed(0), dev)
+    step32 = make_train_step(cfg32, tc32, den_on_device(setup.bundle, dev),
+                             seed=1)
+    _, m_k = step32(copy.deepcopy(st0), batch)
+    plain = lambda device: (bdc.blocked_scan_fwd_plain,
+                            bdc.blocked_scan_bwd_plain)
+    n_before = _blocked_launches(bdc)
+    with mock.patch.object(bdc, "_scan_impl", plain):
+        _, m_p = step32(copy.deepcopy(st0), batch)
+    torch.cuda.synchronize()
+    _check(_blocked_launches(bdc) == n_before,
+           "the plain step launched no kernel")
+    d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
+    d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
+    print(f"[e2e f32 step] smoke den ({e2e_out['den_states']} states, "
+          f"{e2e_out['tree_pdfs']} pdfs), B=64: objf_mmi kernel="
+          f"{float(m_k['objf_mmi']):.9g} plain={float(m_p['objf_mmi']):.9g} "
+          f"|d|={d_objf:.2e} (tol 1e-4); grad_norm kernel="
+          f"{float(m_k['grad_norm']):.9g} plain="
+          f"{float(m_p['grad_norm']):.9g} |d|={d_gn:.2e} (tol 1e-3 "
+          f"relative); [e2e phase] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    _check(d_objf <= 1e-4, "f32 objf kernel vs plain on the smoke den")
+    _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
+           "f32 grad_norm kernel vs plain on the smoke den")
+    return launches
+
+
+def _smoke(torch, phase) -> int:
+    """Phases 0-14, then the kernels line and the result line."""
     sys.path.insert(0, REPO)
     from tdnnf_nas_torch import convert
     from tdnnf_nas_torch.data import native
@@ -3387,170 +3615,204 @@ def main() -> int:
     print(f"gpu: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # ---- 0. build: the kernels (nvcc), then the decoders, the loader
-    # copy and the supervision builder (g++) ----
-    t0 = time.perf_counter()
-    sos = cuda_build.build()
-    bdc._library()
-    ddc._library()
-    native.get_decoder_lib()
-    native.get_lib()
-    native.get_builder_lib()
-    builder = native.library_path(native.BUILDER_SOURCES, "egs_builder",
-                                  native.BUILDER_FLAGS)
-    print(f"[build] {', '.join(so.name for so in sos)}, "
-          f"{native.library_path(native.DECODER_SOURCES, 'decoders').name}, "
-          f"{native.library_path().name} (csrc/egs_loader.cc), "
-          f"{builder.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with phase(0, "build"):
+        # ---- 0. build: the kernels (nvcc), then the decoders, the loader
+        # copy and the supervision builder (g++) ----
+        t0 = time.perf_counter()
+        sos = cuda_build.build()
+        bdc._library()
+        ddc._library()
+        native.get_decoder_lib()
+        native.get_lib()
+        native.get_builder_lib()
+        builder = native.library_path(native.BUILDER_SOURCES, "egs_builder",
+                                      native.BUILDER_FLAGS)
+        decoders = native.library_path(native.DECODER_SOURCES, "decoders")
+        print(f"[build] {', '.join(so.name for so in sos)}, "
+              f"{decoders.name}, "
+              f"{native.library_path().name} (csrc/egs_loader.cc), "
+              f"{builder.name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
-    # ---- 1. flagship host setup (bench.py:113-157) ----
-    batch_size, chunk_width = FLAGSHIP_BATCH, FLAGSHIP_CHUNK
-    (utts, phone_seqs, topo, tree, bundle, model_cfg, chunks, iv_rng,
-     host_batches, g) = _flagship_setup(dev)
-    batches = [convert.batch_to_torch(b, dev) for b in host_batches]
+    with phase(1, "flagship setup"):
+        # ---- 1. flagship host setup (bench.py:113-157) ----
+        batch_size, chunk_width = FLAGSHIP_BATCH, FLAGSHIP_CHUNK
+        (utts, phone_seqs, topo, tree, bundle, model_cfg, chunks, iv_rng,
+         host_batches, g) = _flagship_setup(dev)
+        batches = [convert.batch_to_torch(b, dev) for b in host_batches]
 
-    # ---- 2. kernel vs plain at the flagship den shape ----
-    blk = _blocked_check(torch, dev, gpu, g, tree.num_pdfs, batch_size)
+    with phase(2, "blocked kernels"):
+        # ---- 2. kernel vs plain at the flagship den shape ----
+        blk = _blocked_check(torch, dev, gpu, g, tree.num_pdfs, batch_size)
 
-    # ---- 3. training: the main path ----
-    trainer_cfg = TrainerConfig(
-        objective=ChainObjectiveConfig(den_obs_bf16=True),
-        optimizer=OptimizerConfig(kind="adam", lr_initial=1e-3,
-                                  lr_final=1e-4, num_steps=100000))
-    state = init_train_state(model_cfg, trainer_cfg,
-                             torch.Generator().manual_seed(0), dev)
-    n_params = count_params(state.params)
-    print(f"[model] params={n_params:,} compute_dtype="
-          f"{model_cfg.compute_dtype}", flush=True)
-    _check(n_params == 18_751_248, "18,751,248 params")
-    step = make_train_step(model_cfg, trainer_cfg, g)
-    torch.cuda.reset_peak_memory_stats(dev)
-    bdc.blocked_den_fwd_cuda.launches = 0
-    bdc.blocked_den_bwd_cuda.launches = 0
-    objfs = []
-    n_warm, n_timed = 2, 6
-    for i in range(n_warm):
-        state, m = step(state, batches[i])
-        objfs.append(float(m["objf_mmi"]))
-        _check(bdc.blocked_den_fwd_cuda.launches == i + 1
-               and bdc.blocked_den_bwd_cuda.launches == i + 1,
-               "one launch of each kernel per step")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ms = []
-    for i in range(n_timed):
-        state, m = step(state, batches[n_warm + i])
-        ms.append(m)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_timed
-    launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
-                "bwd": bdc.blocked_den_bwd_cuda.launches}
-    objfs += [float(m["objf_mmi"]) for m in ms]
-    print(f"[train] objf_mmi per step: "
-          + " ".join(f"{v:.4f}" for v in objfs), flush=True)
-    _check(all(np.isfinite(objfs)), "objf_mmi finite at every step")
-    _check(all(np.isfinite(float(m["grad_norm"])) for m in ms),
-           "grad_norm finite")
-    _check(launches["fwd"] == launches["bwd"] == n_warm + n_timed,
-           "both kernels launched once per step")
-    held = [state]
+    with phase(3, "train"):
+        # ---- 3. training: the main path ----
+        trainer_cfg = TrainerConfig(
+            objective=ChainObjectiveConfig(den_obs_bf16=True),
+            optimizer=OptimizerConfig(kind="adam", lr_initial=1e-3,
+                                      lr_final=1e-4, num_steps=100000))
+        state = init_train_state(model_cfg, trainer_cfg,
+                                 torch.Generator().manual_seed(0), dev)
+        n_params = count_params(state.params)
+        print(f"[model] params={n_params:,} compute_dtype="
+              f"{model_cfg.compute_dtype}", flush=True)
+        _check(n_params == 18_751_248, "18,751,248 params")
+        step = make_train_step(model_cfg, trainer_cfg, g)
+        torch.cuda.reset_peak_memory_stats(dev)
+        bdc.blocked_den_fwd_cuda.launches = 0
+        bdc.blocked_den_bwd_cuda.launches = 0
+        objfs = []
+        n_warm, n_timed = 2, 6
+        for i in range(n_warm):
+            state, m = step(state, batches[i])
+            objfs.append(float(m["objf_mmi"]))
+            _check(bdc.blocked_den_fwd_cuda.launches == i + 1
+                   and bdc.blocked_den_bwd_cuda.launches == i + 1,
+                   "one launch of each kernel per step")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = []
+        for i in range(n_timed):
+            state, m = step(state, batches[n_warm + i])
+            ms.append(m)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_timed
+        launches = {"fwd": bdc.blocked_den_fwd_cuda.launches,
+                    "bwd": bdc.blocked_den_bwd_cuda.launches}
+        objfs += [float(m["objf_mmi"]) for m in ms]
+        print(f"[train] objf_mmi per step: "
+              + " ".join(f"{v:.4f}" for v in objfs), flush=True)
+        _check(all(np.isfinite(objfs)), "objf_mmi finite at every step")
+        _check(all(np.isfinite(float(m["grad_norm"])) for m in ms),
+               "grad_norm finite")
+        _check(launches["fwd"] == launches["bwd"] == n_warm + n_timed,
+               "both kernels launched once per step")
+        held = [state]
 
-    def one_step():
-        held[0], _ = step(held[0], batches[0])
+        def one_step():
+            held[0], _ = step(held[0], batches[0])
 
-    step_kernels = _device_launches(torch, one_step)
-    print(f"[train] {dt * 1e3:.2f} ms/step over {n_timed} steps "
-          f"(bf16, den_obs_bf16, B={batch_size}x150 frames) = "
-          f"{batch_size * chunk_width * 3 * 0.010 / dt:.1f} audio-s/s; "
-          f"peak mem {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-          f"launches fwd={launches['fwd']} bwd={launches['bwd']}; device "
-          f"kernel launches per step {step_kernels} (profile) ({gpu})",
-          flush=True)
-    del held
+        step_kernels = _device_launches(torch, one_step)
+        print(f"[train] {dt * 1e3:.2f} ms/step over {n_timed} steps "
+              f"(bf16, den_obs_bf16, B={batch_size}x150 frames) = "
+              f"{batch_size * chunk_width * 3 * 0.010 / dt:.1f} audio-s/s; "
+              f"peak mem "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              f"launches fwd={launches['fwd']} bwd={launches['bwd']}; device "
+              f"kernel launches per step {step_kernels} (profile) ({gpu})",
+              flush=True)
+        del held
 
-    # ---- 4. kernel step vs plain step, float32 ----
-    # The objective is a mean over 3,200 frames of logZ differences of a
-    # few thousand nats; the kernels' logZ error (<= 1e-3) moves it by
-    # < 1e-6, and float32 model math (TF32 off) repeats within that.
-    f32_cfg = model_cfg.replace(compute_dtype="float32")
-    f32_tc = trainer_cfg.replace(objective=ChainObjectiveConfig())
-    st0 = init_train_state(f32_cfg, f32_tc,
-                           torch.Generator().manual_seed(1), dev)
-    step32 = make_train_step(f32_cfg, f32_tc, g)
-    _, m_k = step32(copy.deepcopy(st0), batches[0])
-    n_before = (bdc.blocked_den_fwd_cuda.launches,
-                bdc.blocked_den_bwd_cuda.launches)
-    plain = lambda device: (bdc.blocked_scan_fwd_plain,
-                            bdc.blocked_scan_bwd_plain)
-    with mock.patch.object(bdc, "_scan_impl", plain):
-        _, m_p = step32(copy.deepcopy(st0), batches[0])
-    torch.cuda.synchronize()
-    _check(n_before == (bdc.blocked_den_fwd_cuda.launches,
-                        bdc.blocked_den_bwd_cuda.launches),
-           "the plain step launched no kernel")
-    d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
-    d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
-    print(f"[f32 step] objf_mmi kernel={float(m_k['objf_mmi']):.9g} "
-          f"plain={float(m_p['objf_mmi']):.9g} |d|={d_objf:.2e} (tol 1e-4); "
-          f"logz_den kernel={float(m_k['logz_den']):.9g} "
-          f"plain={float(m_p['logz_den']):.9g}; "
-          f"grad_norm kernel={float(m_k['grad_norm']):.9g} "
-          f"plain={float(m_p['grad_norm']):.9g} |d|={d_gn:.2e} "
-          f"(tol 1e-3 relative)", flush=True)
-    _check(d_objf <= 1e-4, "f32 objf kernel vs plain")
-    _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
-           "f32 grad_norm kernel vs plain")
+    with phase(4, "f32 step"):
+        # ---- 4. kernel step vs plain step, float32 ----
+        # The objective is a mean over 3,200 frames of logZ differences of a
+        # few thousand nats; the kernels' logZ error (<= 1e-3) moves it by
+        # < 1e-6, and float32 model math (TF32 off) repeats within that.
+        f32_cfg = model_cfg.replace(compute_dtype="float32")
+        f32_tc = trainer_cfg.replace(objective=ChainObjectiveConfig())
+        st0 = init_train_state(f32_cfg, f32_tc,
+                               torch.Generator().manual_seed(1), dev)
+        step32 = make_train_step(f32_cfg, f32_tc, g)
+        _, m_k = step32(copy.deepcopy(st0), batches[0])
+        n_before = (bdc.blocked_den_fwd_cuda.launches,
+                    bdc.blocked_den_bwd_cuda.launches)
+        plain = lambda device: (bdc.blocked_scan_fwd_plain,
+                                bdc.blocked_scan_bwd_plain)
+        with mock.patch.object(bdc, "_scan_impl", plain):
+            _, m_p = step32(copy.deepcopy(st0), batches[0])
+        torch.cuda.synchronize()
+        _check(n_before == (bdc.blocked_den_fwd_cuda.launches,
+                            bdc.blocked_den_bwd_cuda.launches),
+               "the plain step launched no kernel")
+        d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
+        d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
+        print(f"[f32 step] objf_mmi kernel={float(m_k['objf_mmi']):.9g} "
+              f"plain={float(m_p['objf_mmi']):.9g} |d|={d_objf:.2e} "
+              f"(tol 1e-4); "
+              f"logz_den kernel={float(m_k['logz_den']):.9g} "
+              f"plain={float(m_p['logz_den']):.9g}; "
+              f"grad_norm kernel={float(m_k['grad_norm']):.9g} "
+              f"plain={float(m_p['grad_norm']):.9g} |d|={d_gn:.2e} "
+              f"(tol 1e-3 relative)", flush=True)
+        _check(d_objf <= 1e-4, "f32 objf kernel vs plain")
+        _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
+               "f32 grad_norm kernel vs plain")
 
-    del state, st0, step, step32
-    resident = batches[0]
-    del batches
-    dense, dense_bundle, dense_g = _dense_phase(torch, dev, gpu, utts,
-                                                phone_seqs, topo, iv_rng)
-    search = _search_phase(
-        torch, dev, gpu, dense_bundle, dense_g,
-        TdnnfModelConfig(num_pdfs=2208, ivector_dim=0), batch_size=32,
-        expect_params=(51_494_904, 23_232_504))
-    for row, key in zip(dense, ("fwd", "bwd")):
-        print(f"[launches] {row['name']}: dense training {row['launches']}, "
-              f"search {search[key]}", flush=True)
-        row["launches"] += search[key]
-    del dense_g
+        del state, st0, step, step32
+        resident = batches[0]
+        del batches
 
-    # ---- 7. the step fed from a TEGS shard through the native loader ----
-    loader_launches = _loader_phase(torch, dev, gpu, chunks, g, model_cfg,
-                                    trainer_cfg, resident)
-    del chunks, resident  # phase 11 takes g, the bundle and host_batches
+    with phase(5, "dense den"):
+        dense, dense_bundle, dense_g = _dense_phase(torch, dev, gpu, utts,
+                                                    phone_seqs, topo, iv_rng)
 
-    # ---- 8. the decode path at the flagship's width ----
-    decode_launches, ctx = _decode_phase(torch, dev, gpu, tree, topo,
-                                         dense_bundle)
-    # ---- 9. RNNLM rescoring and LHUC on phase 8's model and lattices ----
-    lhuc_launches, b16 = _adapt_rescore_phase(torch, dev, gpu, ctx)
-    del ctx
-    # ---- 10. the tri5_7d path: GMM ladder, +-1 tree, committed den ----
-    pm1_launches, pm1 = _tri5_7d_phase(torch, dev, gpu)
-    # ---- 11. front end, optimizer kinds, Bayes/GP and CNN-TDNN-F ----
-    trainer_launches = _trainers_phase(
-        torch, dev, gpu, g, bundle, model_cfg,
-        [convert.batch_to_torch(b, dev) for b in host_batches], chunk_width,
-        batch_size)
-    del g
-    # ---- 12. the bench-scale +-1 den through the factored scan ----
-    _factored_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng,
-                    dense_bundle)
-    torch.cuda.empty_cache()
-    # ---- 13. data parallel on the one card ----
-    dp_launches = _dp_phase(torch, dev, gpu, bundle.den_arrays, host_batches)
+    with phase(6, "search"):
+        search = _search_phase(
+            torch, dev, gpu, dense_bundle, dense_g,
+            TdnnfModelConfig(num_pdfs=2208, ivector_dim=0), batch_size=32,
+            expect_params=(51_494_904, 23_232_504))
+        for row, key in zip(dense, ("fwd", "bwd")):
+            print(f"[launches] {row['name']}: dense training "
+                  f"{row['launches']}, "
+                  f"search {search[key]}", flush=True)
+            row["launches"] += search[key]
+        del dense_g
+
+    with phase(7, "loader"):
+        # ---- 7. the step fed from a TEGS shard through the native loader ----
+        loader_launches = _loader_phase(torch, dev, gpu, chunks, g, model_cfg,
+                                        trainer_cfg, resident)
+        del chunks, resident  # phase 11 takes g, the bundle and host_batches
+
+    with phase(8, "decode"):
+        # ---- 8. the decode path at the flagship's width ----
+        decode_launches, ctx = _decode_phase(torch, dev, gpu, tree, topo,
+                                             dense_bundle)
+
+    with phase(9, "rnnlm and lhuc"):
+        # ---- 9. RNNLM rescoring and LHUC on phase 8's model and lattices ----
+        lhuc_launches, b16 = _adapt_rescore_phase(torch, dev, gpu, ctx)
+        del ctx
+
+    with phase(10, "tri5_7d"):
+        # ---- 10. the tri5_7d path: GMM ladder, +-1 tree, committed den ----
+        pm1_launches, pm1 = _tri5_7d_phase(torch, dev, gpu)
+
+    with phase(11, "trainers"):
+        # ---- 11. front end, optimizer kinds, Bayes/GP and CNN-TDNN-F ----
+        trainer_launches = _trainers_phase(
+            torch, dev, gpu, g, bundle, model_cfg,
+            [convert.batch_to_torch(b, dev) for b in host_batches],
+            chunk_width,
+            batch_size)
+        del g
+
+    with phase(12, "factored den"):
+        # ---- 12. the bench-scale +-1 den through the factored scan ----
+        _factored_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng,
+                        dense_bundle)
+        torch.cuda.empty_cache()
+
+    with phase(13, "data parallel"):
+        # ---- 13. data parallel on the one card ----
+        dp_launches = _dp_phase(torch, dev, gpu, bundle.den_arrays,
+                                host_batches)
+
+    # ---- 14. the whole flagship run, stages 1-9 ----
+    with phase(14, "e2e flagship"):
+        e2e_launches = _e2e_phase(torch, dev, gpu)
+
     for k in ("fwd", "bwd"):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
               f"loader-fed phase {loader_launches[k]}, decode-phase "
               f"training {decode_launches[k]}, LHUC steps "
               f"{lhuc_launches[k]}, +-1 steps {pm1_launches[k]}, phase 11 "
               f"steps {trainer_launches[k]}, data-parallel phase "
-              f"{dp_launches[k]}", flush=True)
+              f"{dp_launches[k]}, e2e run {e2e_launches[k]}", flush=True)
         launches[k] += (loader_launches[k] + decode_launches[k]
                         + lhuc_launches[k] + pm1_launches[k]
-                        + trainer_launches[k] + dp_launches[k])
+                        + trainer_launches[k] + dp_launches[k]
+                        + e2e_launches[k])
 
     kernels = [
         {"name": f"blocked_den_{k}", "route": "cuda",
@@ -3569,6 +3831,42 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+class _Phases:
+    """Names each phase on stdout: ``[phase N name] start`` before it,
+    ``[phase N name] ok <s> s`` after it; ``current`` is the phase that
+    runs, or the last one that ended."""
+
+    def __init__(self):
+        self.current = "[before phase 0]"
+
+    @contextlib.contextmanager
+    def __call__(self, n: int, name: str):
+        tag = f"[phase {n} {name}]"
+        print(f"{tag} start", flush=True)
+        self.current = tag
+        t0 = time.perf_counter()
+        yield
+        print(f"{tag} ok {time.perf_counter() - t0:.1f} s", flush=True)
+        self.current = f"[after phase {n} {name}]"
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    phase = _Phases()
+    try:
+        return _smoke(torch, phase)
+    except BaseException as e:
+        # the failing phase by name, then the traceback, on stdout
+        print(f"{phase.current} FAILED: {e!r}", flush=True)
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        raise
 
 
 if __name__ == "__main__":

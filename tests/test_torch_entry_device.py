@@ -20,7 +20,7 @@ from tdnnf_nas_torch.ops import extras
 from tdnnf_nas_torch.parallel import mesh as mesh_mod
 from tdnnf_nas_torch.parallel import multihost
 from tdnnf_nas_torch.recipes import chain_recipes
-from tdnnf_nas_torch.tools import e2e_flagship
+from tdnnf_nas_torch.tools import e2e_flagship, e2e_search
 from tdnnf_nas_torch.train import trainer
 from tdnnf_nas_torch.train.optimizer import tree_paths
 
@@ -61,6 +61,10 @@ _ENTRY_POINTS = {
     "bootstrap_alignments_gmm": (chain_recipes.bootstrap_alignments_gmm,
                                  (None, None, None)),
     "bootstrap_stage": (e2e_flagship.bootstrap_stage, (None,) * 5),
+    "build_setup": (e2e_flagship.build_setup, (None,)),
+    "run_base": (e2e_flagship.run_base, (None,)),
+    "run_search": (e2e_search.run_search, (None,)),
+    "e2e_main": (e2e_flagship.main, (["all", "--out", "unused"],)),
     "featurize_batch": (audio.featurize_batch, ([np.zeros(400)], None)),
     "init_bayes_model": (bayes.init_bayes_model, (None, None)),
     "init_cnn_frontend": (cnn.init_cnn_frontend, (None, None)),
