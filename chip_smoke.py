@@ -14,7 +14,9 @@ speaker adaptation, then the tri5_7d path (GMM ladder, +-1 tree,
 committed den with its wildcard term), then the front end, the
 optimizer kinds and the Bayes/GP and CNN-TDNN-F families, then the
 bench-scale +-1 den through the factored scan and data parallel over
-two ranks, then the whole flagship run of ``tools/e2e_flagship``.
+two ranks, then the whole flagship run of ``tools/e2e_flagship``, then
+the three search experiments (``tools/search_sanity_planted``,
+``tools/search_planted_table``, ``tools/e2e_wer_pipeline``).
 Checks the
 hand-written CUDA kernels of each path
 against their plain PyTorch versions.  Phases, each raising on failure:
@@ -40,8 +42,11 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      den states and pdfs, 16,784,684 params); dense-den kernels vs plain
      at B=64, T=50, S=2,208 in float32, with timings, ``library_ms``, the
      bound and the device launches of one scan (one each, checked), the
-     kernel and cuBLAS times at the search's B=32 beside them; launch
-     counters reset, then 6 bf16 steps with the default objective config (objf
+     kernel and cuBLAS times at the search's B=32 beside them; the same
+     checks, times and launches at phase 15's planted sanity den (S =
+     16, B = 16, T = 20, built by ``search_sanity_planted.planted_bundle``),
+     the shape farthest below one output slice of the kernels' tile
+     plan; launch counters reset, then 6 bf16 steps with the default objective config (objf
      and grad_norm finite, both kernels launched once per step, ms/step);
      one float32 kernel step against the same step through the plain den;
   6. the two-stage DARTS search on phase 5's biphone bundle and den: the
@@ -194,7 +199,33 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      table rows of 14 stride pairs with ``manual_baseline`` at stage
      4's parameter count; then one float32 step of the run's model on
      its den through the kernels against the plain scan (objf 1e-4,
-     ``grad_norm`` 1e-3 relative).
+     ``grad_norm`` 1e-3 relative).  It runs at ``E2E_CUT``: 10 test
+     utterances, 50 RNNLM, 40 no-i-vector and 30 A/B steps, and 40
+     supernet, 30 cv-update and 25 child steps, against the smoke
+     sizes' 20, 150, 120, 60, 80, 60 and 100;
+ 15. (``_search_experiments_phase``) the search experiments, each
+     tool's ``main`` in this process into a fresh temporary directory:
+     (a) ``search_sanity_planted`` on its 16-state dense den at
+     ``SANITY_SMOKE_STEPS`` (phase 5 holds the dense pair at this den's
+     shape); (b) ``search_planted_table`` on the quick corpus
+     (2,227-state blocked den) cut by ``TABLE_SMOKE_CUT`` (steps, and
+     20 of the 60 test utterances decoded), then ``_blocked_check`` on
+     its den at B = 48, T = 24; (c) ``e2e_wer_pipeline all --variant
+     sil`` (the silence-aware HCLG) at ``WER_SMOKE_SIZES``, each cut
+     printed beside the reference's figure.  Each run is held to what
+     holds at any size: its files' keys are the reference's
+     (``docs/``), every objf finite, every WER finite and >= 0,
+     ``dev_objf_gap``, ``planted_reach_found`` and ``lookahead_reach``
+     their own arithmetic, the cv-update's alphas finite and each
+     affine softmax row of the file summing to 1 within its rounding,
+     the den's form (dense for (a), blocked for (b) and (c)), each den
+     kernel launched once per training, supernet, cv-update and child
+     step and the forward once more per valid batch, 1 stride pair a
+     row in (a) and 5 in (b) and (c), the manual row's params those of
+     the manual config, and one float32 step of the run's model on its
+     den through the kernels against the plain scan (objf 1e-4,
+     ``grad_norm`` 1e-3 relative); its seconds and the reference's
+     figures are printed, never held.
 
 Each phase prints ``[phase N name] start`` before it and ``[phase N
 name] ok <s> s`` after it; a failure prints ``[phase N name] FAILED:``
@@ -204,9 +235,13 @@ Prints the card's name and power limit, one JSON line of per-kernel
 results (with ``bound_ms``, ``bound_by``, ``library_ms``, the bound of
 three TF32 tensor-core passes ``bound_ms_3xtf32``,
 ``launches_per_scan`` and, for the blocked pair, each of phase 2's
-fields again at LHUC's batch with the suffix ``_b16`` and on phase 10's
-+-1 den with the suffix ``_pm1``; the blocked rows' launches include
-phase 11's steps, phase 13's, every rank's, and phase 14's), and as
+fields again at LHUC's batch with the suffix ``_b16``, on phase 10's
++-1 den with the suffix ``_pm1`` and on phase 15's planted-table den at
+B = 48 with the suffix ``_b48``; for the dense pair the B = 32 time,
+yardstick and bound (``_b32``) and phase 5's check at phase 15's
+sanity den (S = 16) with the suffix ``_sanity``; the blocked rows' launches include phase 11's
+steps, phase 13's, every rank's, phase 14's and phase 15's, the dense
+rows' phase 15's sanity run), and as
 its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
@@ -283,26 +318,40 @@ def _bound_3xtf32(flops: float, nbytes: float) -> float:
     return max(3.0 * flops / _PEAK_TF32_FLOPS, nbytes / _PEAK_BYTES) * 1e3
 
 
-def _device_launches(torch, fn, attempts: int = 3):
+# host seconds of idle time around fn() in each profile of
+# _device_launches: the first profile holds fn() alone, each later one a
+# wider window (late in a run the first profile of a phase has needed up
+# to five attempts, and once five were not enough)
+_PROFILE_PADS = (0.0, 0.05, 0.25, 0.5, 1.0, 1.0, 1.0, 2.0, 2.0, 2.0)
+
+
+def _device_launches(torch, fn):
     """Device kernels one fn() call launches (memsets and copies apart),
-    read from torch.profiler after a warm-up call; None if the profiler
-    sees no device activity in any of ``attempts`` profiles (on the
-    card it now and then records none for a whole profile, so a profile
-    without device events is taken again)."""
+    read from torch.profiler after a warm-up call; None if no profile
+    holds a kernel.  fn() launches at least one kernel, so a profile
+    without one lost its events, as profiles of a few milliseconds now
+    and then do late in a long run on the card: each retry pads the
+    window with host idle time on both sides (``_PROFILE_PADS``), and
+    the attempt that saw the kernels is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for i, pad in enumerate(_PROFILE_PADS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev:
-            return sum(not e.name.startswith(("Memset", "Memcpy"))
-                       for e in dev)
+            time.sleep(pad)
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memset", "Memcpy"))
+                for e in prof.events())
+        if n:
+            if i:
+                print(f"[profiler] kernels seen on attempt {i + 1} (window "
+                      f"padded by {pad} s)", flush=True)
+            return n
     return None
 
 
@@ -313,9 +362,10 @@ def _library_ms(torch, mm, t: int) -> float:
     return _cuda_ms(torch, lambda: [mm() for _ in range(t - 1)])
 
 
-def _blocked_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int):
+def _blocked_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int,
+                   t: int = 50):
     """The blocked pair against its plain version on den ``g`` at
-    ``batch_size`` x 50 frames, float32 and bf16 obs: finite outputs, two
+    ``batch_size`` x ``t`` frames, float32 and bf16 obs: finite outputs, two
     kernel runs equal bit for bit, logZ and the obs gradient within their
     bars; then, with bf16 obs (the main path's setting), kernel and plain
     times, the scan's block products alone in cuBLAS (``library_ms``),
@@ -324,14 +374,14 @@ def _blocked_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int):
 
     Tolerances: the kernels sum in another order than the plain path's
     cuBLAS products and torch reductions (no atomics: two kernel runs
-    agree bit for bit).  logZ sums 50 per-frame log-scales of ~1e-6
+    agree bit for bit).  logZ sums t (<= 50) per-frame log-scales of ~1e-6
     relative error each: |dlogZ| <= 1e-3.  The obs gradient is held
     relative to its largest entry: 1e-3 in float32; with bf16 obs it is
     written in bf16, whose rounding step is 2^-8 relative: 1e-2."""
     from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
     from tdnnf_nas_torch.ops.fwdbwd import _MIN_LOG_OBS
 
-    t, leaky = 50, 0.1
+    leaky = 0.1
     c, nsrc, ndp = g.w_blocks.shape
     rng = np.random.RandomState(0)
     logits = torch.tensor(rng.randn(batch_size, t, num_pdfs)
@@ -351,7 +401,8 @@ def _blocked_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int):
         z_p, al_p, cs_p = bdc.blocked_scan_fwd_plain(obs_v, g, leaky)
         gr_p = bdc.blocked_scan_bwd_plain(obs_v, g, al_p, cs_p, gbar)
         torch.cuda.synchronize()
-        name = f"{str(obs_dtype).replace('torch.', '')} B={batch_size}"
+        name = (f"{str(obs_dtype).replace('torch.', '')} B={batch_size}"
+                + ("" if t == 50 else f" T={t}"))
         _check(bool(torch.isfinite(z_k).all() and torch.isfinite(
             gr_k.float()).all()), f"finite kernel outputs ({name})")
         _check(bool(torch.equal(z_k, z_k2) and torch.equal(gr_k, gr_k2)),
@@ -409,6 +460,116 @@ def _blocked_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int):
     return out
 
 
+def _dense_check(torch, dev, gpu, g, num_pdfs: int, batch_size: int, t: int,
+                 half: bool = False):
+    """The dense pair against its plain version on den ``g`` at
+    ``batch_size`` x ``t`` frames in float32: finite outputs, two kernel
+    runs equal bit for bit, logZ within 1e-3 and the log-obs gradient
+    within 1e-3 of its largest entry; then kernel and plain times, the
+    scan's products alone in cuBLAS (``library_ms``), both bounds and the
+    device launches of one scan (one each, checked); with ``half``, the kernel
+    and cuBLAS times and the bound again on the first half of the rows
+    (keys suffixed ``_b<rows>``).  Returns {"fwd", "bwd"}: each kernel's
+    fields.
+
+    Tolerances as in phase 2: the kernels sum in another order than
+    cuBLAS and torch (no atomics: runs repeat bit for bit); logZ sums t
+    per-frame log-scales of ~1e-6 relative error each: |dlogZ| <= 1e-3;
+    the log-obs gradient within 1e-3 of its largest entry."""
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
+    from tdnnf_nas_torch.ops.fwdbwd import _MIN_LOG_OBS
+
+    rng = np.random.RandomState(5)
+    logits = torch.tensor(rng.randn(batch_size, t, num_pdfs)
+                          .astype(np.float32) * 2.0, device=dev)
+    obs = torch.clamp(logits - logits.amax(-1, keepdim=True),
+                      min=_MIN_LOG_OBS).index_select(-1, g.state_pdf)
+    obs = obs.contiguous()
+    gbar = torch.tensor(rng.rand(batch_size).astype(np.float32) + 0.5,
+                        device=dev)
+    leaky = 0.1
+    fwd = lambda: ddc.dense_den_fwd_cuda(obs, g.trans, g.init, g.final, leaky)
+    z_k, al_k, cs_k = fwd()
+    bwd = lambda: ddc.dense_den_bwd_cuda(obs, g.trans, g.final, al_k, cs_k,
+                                         gbar)
+    gr_k = bwd()
+    z_k2, al_k2, _ = fwd()
+    gr_k2 = bwd()
+    z_p, al_p, cs_p = ddc.dense_scan_fwd_plain(obs, g.trans, g.init, g.final,
+                                               leaky)
+    gr_p = ddc.dense_scan_bwd_plain(obs, g.trans, g.final, al_p, cs_p, gbar)
+    torch.cuda.synchronize()
+    name = f"B={batch_size} T={t} S={g.trans.shape[0]}"
+    _check(bool(torch.isfinite(z_k).all() and torch.isfinite(gr_k).all()),
+           f"finite dense kernel outputs ({name})")
+    _check(bool(torch.equal(z_k, z_k2) and torch.equal(al_k, al_k2)
+                and torch.equal(gr_k, gr_k2)),
+           f"dense kernel runs repeat bit for bit ({name})")
+    err = {"fwd": float((z_k - z_p).abs().max()),
+           "bwd": float((gr_k - gr_p).abs().max())}
+    gmax = float(gr_p.abs().max())
+    print(f"[dense kernel-vs-plain f32 {name}] logZ max|err|={err['fwd']:.3e}"
+          f" (tol 1e-3); alphas max|err|={float((al_k - al_p).abs().max()):.3e};"
+          f" grad max|err|={err['bwd']:.3e} (tol 1e-3 x max|grad|="
+          f"{gmax:.3e})", flush=True)
+    _check(err["fwd"] <= 1e-3, f"dense logZ within 1e-3 ({name})")
+    _check(err["bwd"] <= 1e-3 * max(gmax, 1.0), f"dense grad within tol ({name})")
+    s = g.trans.shape[0]
+    x = torch.rand(batch_size, s, device=dev)
+    y = torch.empty_like(x)
+    mm = {"fwd": lambda: torch.mm(x, g.trans, out=y),
+          "bwd": lambda: torch.mm(x, g.trans.T, out=y)}
+    plain = {"fwd": lambda: ddc.dense_scan_fwd_plain(obs, g.trans, g.init,
+                                                     g.final, leaky),
+             "bwd": lambda: ddc.dense_scan_bwd_plain(obs, g.trans, g.final,
+                                                     al_p, cs_p, gbar)}
+    # bound: 2*B*S^2 flops a product frame against obs, alphas (and grad)
+    # and trans moved once
+    flops = 2.0 * batch_size * s * s * (t - 1)
+    plane = 4.0 * batch_size * t * s
+    out = {}
+    for k, run, n_planes in (("fwd", fwd, 2), ("bwd", bwd, 3)):
+        o = out[k] = {"max_abs_err": err[k]}
+        nbytes = n_planes * plane + 4.0 * s * s
+        o["ms"] = _cuda_ms(torch, run)
+        o["plain_ms"] = _cuda_ms(torch, plain[k])
+        o["bound_ms"], o["bound_by"] = _bound(flops, nbytes)
+        o["bound_ms_3xtf32"] = _bound_3xtf32(flops, nbytes)
+        o["library_ms"] = _library_ms(torch, mm[k], t)
+        o["launches_per_scan"] = _device_launches(torch, run)
+        print(f"[dense den {k}, {name}] kernel {o['ms']:.4f} ms vs plain "
+              f"{o['plain_ms']:.4f} ms; cuBLAS products alone "
+              f"{o['library_ms']:.4f} ms; bound {o['bound_ms']:.6f} ms "
+              f"({o['bound_by']}), 3xTF32 bound {o['bound_ms_3xtf32']:.6f} "
+              f"ms; device launches per scan {o['launches_per_scan']} "
+              f"({gpu})", flush=True)
+        _check(o["launches_per_scan"] == 1,
+               f"dense {k}: one device kernel per scan ({name})")
+    if half:
+        h = batch_size // 2
+        obs_h, gbar_h = obs[:h].contiguous(), gbar[:h].contiguous()
+        _, al_h, cs_h = ddc.dense_den_fwd_cuda(obs_h, g.trans, g.init,
+                                               g.final, leaky)
+        x_h, y_h = x[:h].contiguous(), y[:h].contiguous()
+        run_h = {"fwd": lambda: ddc.dense_den_fwd_cuda(
+                     obs_h, g.trans, g.init, g.final, leaky),
+                 "bwd": lambda: ddc.dense_den_bwd_cuda(
+                     obs_h, g.trans, g.final, al_h, cs_h, gbar_h)}
+        mm_h = {"fwd": lambda: torch.mm(x_h, g.trans, out=y_h),
+                "bwd": lambda: torch.mm(x_h, g.trans.T, out=y_h)}
+        for k, n_planes in (("fwd", 2), ("bwd", 3)):
+            o = out[k]
+            o[f"ms_b{h}"] = _cuda_ms(torch, run_h[k])
+            o[f"library_ms_b{h}"] = _library_ms(torch, mm_h[k], t)
+            o[f"bound_ms_b{h}"] = _bound(flops / 2, n_planes * plane / 2
+                                         + 4.0 * s * s)[0]
+            print(f"[dense den {k}, B={h} T={t} S={s}] kernel "
+                  f"{o[f'ms_b{h}']:.4f} ms; cuBLAS products alone "
+                  f"{o[f'library_ms_b{h}']:.4f} ms; bound "
+                  f"{o[f'bound_ms_b{h}']:.6f} ms ({gpu})", flush=True)
+    return out
+
+
 def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
     """Phase 5, the dense biphone flagship; returns its two kernel rows."""
     from tdnnf_nas_torch import convert
@@ -416,8 +577,9 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
     from tdnnf_nas_torch.graphs import BiphoneTree
     from tdnnf_nas_torch.models import TdnnfModelConfig, count_params
     from tdnnf_nas_torch.ops import dense_den_cuda as ddc
-    from tdnnf_nas_torch.ops.fwdbwd import _MIN_LOG_OBS, DenGraphArrays
+    from tdnnf_nas_torch.ops.fwdbwd import DenGraphArrays
     from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
+    from tdnnf_nas_torch.tools import search_sanity_planted as ssp
     from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
                                        TrainerConfig, init_train_state,
                                        make_train_step)
@@ -448,105 +610,18 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
     g = DenGraphArrays.from_graph(bundle.den, dev)
     batches = [convert.batch_to_torch(b, dev) for b in host_batches]
 
-    # ---- 5.2 kernel vs plain at B=64, T=50, S=2,208, float32 ----
-    # Tolerances as in phase 2: the kernels sum in another order than
-    # cuBLAS and torch (no atomics: runs repeat bit for bit); logZ sums 50
-    # per-frame log-scales of ~1e-6 relative error each: |dlogZ| <= 1e-3;
-    # the log-obs gradient within 1e-3 of its largest entry.
-    rng = np.random.RandomState(5)
-    logits = torch.tensor(rng.randn(batch_size, chunk_width, tree.num_pdfs)
-                          .astype(np.float32) * 2.0, device=dev)
-    obs = torch.clamp(logits - logits.amax(-1, keepdim=True),
-                      min=_MIN_LOG_OBS).index_select(-1, g.state_pdf)
-    obs = obs.contiguous()
-    gbar = torch.tensor(rng.rand(batch_size).astype(np.float32) + 0.5,
-                        device=dev)
-    leaky = 0.1
-    z_k, al_k, cs_k = ddc.dense_den_fwd_cuda(obs, g.trans, g.init, g.final,
-                                             leaky)
-    gr_k = ddc.dense_den_bwd_cuda(obs, g.trans, g.final, al_k, cs_k, gbar)
-    z_k2, al_k2, cs_k2 = ddc.dense_den_fwd_cuda(obs, g.trans, g.init,
-                                                g.final, leaky)
-    gr_k2 = ddc.dense_den_bwd_cuda(obs, g.trans, g.final, al_k2, cs_k2, gbar)
-    z_p, al_p, cs_p = ddc.dense_scan_fwd_plain(obs, g.trans, g.init, g.final,
-                                               leaky)
-    gr_p = ddc.dense_scan_bwd_plain(obs, g.trans, g.final, al_p, cs_p, gbar)
-    torch.cuda.synchronize()
-    _check(bool(torch.isfinite(z_k).all() and torch.isfinite(gr_k).all()),
-           "finite dense kernel outputs")
-    _check(bool(torch.equal(z_k, z_k2) and torch.equal(al_k, al_k2)
-                and torch.equal(gr_k, gr_k2)),
-           "dense kernel runs repeat bit for bit")
-    err_z = float((z_k - z_p).abs().max())
-    err_g = float((gr_k - gr_p).abs().max())
-    gmax = float(gr_p.abs().max())
-    err_a = float((al_k - al_p).abs().max())
-    print(f"[dense kernel-vs-plain f32] logZ max|err|={err_z:.3e} (tol 1e-3, "
-          f"|logZ|~{float(z_p.abs().mean()):.1f}); alphas max|err|="
-          f"{err_a:.3e}; grad max|err|={err_g:.3e} (tol 1e-3 x max|grad|="
-          f"{gmax:.3e})", flush=True)
-    _check(err_z <= 1e-3, "dense logZ within 1e-3")
-    _check(err_g <= 1e-3 * max(gmax, 1.0), "dense grad within tol")
-    times = {
-        "fwd": _cuda_ms(torch, lambda: ddc.dense_den_fwd_cuda(
-            obs, g.trans, g.init, g.final, leaky)),
-        "fwd_plain": _cuda_ms(torch, lambda: ddc.dense_scan_fwd_plain(
-            obs, g.trans, g.init, g.final, leaky)),
-        "bwd": _cuda_ms(torch, lambda: ddc.dense_den_bwd_cuda(
-            obs, g.trans, g.final, al_k, cs_k, gbar)),
-        "bwd_plain": _cuda_ms(torch, lambda: ddc.dense_scan_bwd_plain(
-            obs, g.trans, g.final, al_p, cs_p, gbar)),
-    }
-    print(f"[dense den timing, f32, B={batch_size} T={chunk_width} "
-          f"S={g.trans.shape[0]}] fwd kernel {times['fwd']:.3f} ms vs plain "
-          f"{times['fwd_plain']:.3f} ms; bwd kernel {times['bwd']:.3f} ms vs "
-          f"plain {times['bwd_plain']:.3f} ms ({gpu})", flush=True)
-    # yardstick: the scan's products alone in cuBLAS (float32, TF32 off);
-    # bound: 2*B*S^2 flops a product frame against obs, alphas (and grad)
-    # and trans moved once
-    s = g.trans.shape[0]
-    x = torch.rand(batch_size, s, device=dev)
-    y = torch.empty_like(x)
-    lib = {"fwd": _library_ms(torch, lambda: torch.mm(x, g.trans, out=y),
-                              chunk_width),
-           "bwd": _library_ms(torch, lambda: torch.mm(x, g.trans.T, out=y),
-                              chunk_width)}
-    flops = 2.0 * batch_size * s * s * (chunk_width - 1)
-    plane = 4.0 * batch_size * chunk_width * s
-    moved = {"fwd": 2 * plane + 4.0 * s * s, "bwd": 3 * plane + 4.0 * s * s}
-    bound = {k: _bound(flops, v) for k, v in moved.items()}
-    bound_tc = {k: _bound_3xtf32(flops, v) for k, v in moved.items()}
-    per_scan = {
-        "fwd": _device_launches(torch, lambda: ddc.dense_den_fwd_cuda(
-            obs, g.trans, g.init, g.final, leaky)),
-        "bwd": _device_launches(torch, lambda: ddc.dense_den_bwd_cuda(
-            obs, g.trans, g.final, al_k, cs_k, gbar)),
-    }
-    # the search's batch (phase 6): B = 32, same T and S
-    b32 = batch_size // 2
-    obs32, gbar32 = obs[:b32].contiguous(), gbar[:b32].contiguous()
-    _, al32, cs32 = ddc.dense_den_fwd_cuda(obs32, g.trans, g.init, g.final,
-                                           leaky)
-    x32, y32 = x[:b32].contiguous(), y[:b32].contiguous()
-    times32 = {
-        "fwd": _cuda_ms(torch, lambda: ddc.dense_den_fwd_cuda(
-            obs32, g.trans, g.init, g.final, leaky)),
-        "bwd": _cuda_ms(torch, lambda: ddc.dense_den_bwd_cuda(
-            obs32, g.trans, g.final, al32, cs32, gbar32))}
-    lib32 = {"fwd": _library_ms(torch, lambda: torch.mm(
-                 x32, g.trans, out=y32), chunk_width),
-             "bwd": _library_ms(torch, lambda: torch.mm(
-                 x32, g.trans.T, out=y32), chunk_width)}
-    for k in ("fwd", "bwd"):
-        print(f"[dense den {k}] B={batch_size}: kernel {times[k]:.3f} ms, "
-              f"cuBLAS products alone {lib[k]:.3f} ms; B={b32}: kernel "
-              f"{times32[k]:.3f} ms, cuBLAS {lib32[k]:.3f} ms; bound "
-              f"(B={batch_size}) {bound[k][0]:.3f} ms ({bound[k][1]}), "
-              f"3xTF32 bound {bound_tc[k]:.3f} ms; device launches per scan "
-              f"{per_scan[k]} ({gpu})", flush=True)
-        _check(per_scan[k] == 1, f"dense {k}: one device kernel per scan")
-    del al_k, al_k2, al_p, gr_k, gr_k2, gr_p, logits, x, y
-    del al32, obs32, x32, y32
+    # ---- 5.2 kernel vs plain at B=64, T=50, S=2,208, float32, with the
+    # kernels and cuBLAS at the search's B=32 (phase 6) beside them ----
+    chk = _dense_check(torch, dev, gpu, g, tree.num_pdfs, batch_size,
+                       chunk_width, half=True)
+    # ---- 5.2b the same at phase 15's sanity den (S = 16, B = 16, T = 20),
+    # far below one 192-wide output slice of the kernels' tile plan ----
+    p_tree, planted = ssp.planted_bundle()
+    _check(planted.den_fsa is None and planted.den.num_states == 16,
+           "the planted sanity den: dense, 16 states")
+    sanity = _dense_check(torch, dev, gpu,
+                          DenGraphArrays.from_graph(planted.den, dev),
+                          p_tree.num_pdfs, ssp.BATCH, ssp.CHUNK)
 
     # ---- 5.3 training: the dense main path (a dense den always takes
     # the kernels; the default config shows no switch is needed) ----
@@ -618,24 +693,13 @@ def _dense_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng):
            "dense f32 grad_norm kernel vs plain")
 
     src = "tdnnf_nas_torch/csrc/dense_den.cu"
-    rows = [
-        {"name": "dense_den_fwd", "route": "cuda", "source": src,
-         "replaces": f"{_TPU_KERNELS}:74", "launches": launches["fwd"],
-         "max_abs_err": err_z, "ms": times["fwd"],
-         "plain_ms": times["fwd_plain"], "bound_ms": bound["fwd"][0],
-         "bound_by": bound["fwd"][1], "library_ms": lib["fwd"],
-         "bound_ms_3xtf32": bound_tc["fwd"],
-         "launches_per_scan": per_scan["fwd"], "ms_b32": times32["fwd"],
-         "library_ms_b32": lib32["fwd"]},
-        {"name": "dense_den_bwd", "route": "cuda", "source": src,
-         "replaces": f"{_TPU_KERNELS}:110", "launches": launches["bwd"],
-         "max_abs_err": err_g, "ms": times["bwd"],
-         "plain_ms": times["bwd_plain"], "bound_ms": bound["bwd"][0],
-         "bound_by": bound["bwd"][1], "library_ms": lib["bwd"],
-         "bound_ms_3xtf32": bound_tc["bwd"],
-         "launches_per_scan": per_scan["bwd"], "ms_b32": times32["bwd"],
-         "library_ms_b32": lib32["bwd"]},
-    ]
+    rows = [{"name": f"dense_den_{k}", "route": "cuda", "source": src,
+             "replaces": f"{_TPU_KERNELS}:{line}", "launches": launches[k],
+             **chk[k],
+             "max_abs_err": max(chk[k]["max_abs_err"],
+                                sanity[k]["max_abs_err"]),
+             **{f"{key}_sanity": v for key, v in sanity[k].items()}}
+            for k, line in (("fwd", 74), ("bwd", 110))]
     return rows, bundle, g
 
 
@@ -3433,6 +3497,16 @@ E2E_REFERENCE = {"wer_first_pass_tg": 7.44, "wer_4gram_rescore": 7.2,
                            "manual_baseline": 10.43}}
 
 
+# phase 14's cut of the reference's smoke sizes (20 test utterances, whose
+# speakers LHUC adapts twice; the RNNLM's 150, the no-i-vector model's
+# 120 and the A/B's 60 steps; stage 9's pretrain 80, cv-updates 60 and
+# children 100 steps) to leave phase 15 its room in the script's time
+# limit: with 20 test utterances and stage 9 cut alone the script took
+# 1,105.0 s of its 1,200 s, and with 10 test utterances 999.6-1,189.7 s
+E2E_CUT = dict(n_test=10, rnnlm_steps=50, noiv_steps=40, ab_steps=30,
+               pretrain_steps=40, cv_steps=30, child_steps=25)
+
+
 def _walk(tree, path=()):
     """(key path, leaf) of a JSON tree."""
     if isinstance(tree, dict):
@@ -3440,6 +3514,52 @@ def _walk(tree, path=()):
             yield from _walk(v, path + (k,))
     else:
         yield path, tree
+
+
+def _kernel_vs_plain_step(torch, dev, bundle, cfg32, tc32, chunk_width: int,
+                          batch_size: int, what: str):
+    """One float32 step of ``cfg32`` on ``bundle``'s den through the kernels
+    and through the plain scan, from one state on one batch (phase 4's
+    bars: objf 1e-4, ``grad_norm`` 1e-3 relative).  A dense den takes the
+    dense pair, any other the blocked pair."""
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.data.egs import batch_iterator
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
+    from tdnnf_nas_torch.ops.fwdbwd import DenGraphArrays
+    from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
+    from tdnnf_nas_torch.train import init_train_state, make_train_step
+
+    dense = isinstance(bundle.den_arrays, DenGraphArrays)
+    mod = ddc if dense else bdc
+    plain = ((ddc.dense_scan_fwd_plain, ddc.dense_scan_bwd_plain) if dense
+             else (bdc.blocked_scan_fwd_plain, bdc.blocked_scan_bwd_plain))
+    counts = _dense_launches if dense else _blocked_launches
+    host = next(batch_iterator(bundle.egs(cfg32, chunk_width=chunk_width),
+                               batch_size, np.random.RandomState(0)))
+    batch = convert.batch_to_torch(host, dev)
+    st0 = init_train_state(cfg32, tc32, torch.Generator().manual_seed(0), dev)
+    step32 = make_train_step(cfg32, tc32, den_on_device(bundle, dev), seed=1)
+    n0 = counts(mod)
+    _, m_k = step32(copy.deepcopy(st0), batch)
+    n1 = counts(mod)
+    with mock.patch.object(mod, "_scan_impl", lambda device: plain):
+        _, m_p = step32(copy.deepcopy(st0), batch)
+    torch.cuda.synchronize()
+    _check(n1 == tuple(n + 1 for n in n0), f"{what}: the kernel step "
+           "launched each kernel once")
+    _check(counts(mod) == n1, f"{what}: the plain step launched no kernel")
+    d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
+    d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
+    print(f"[{what} f32 step] {'dense' if dense else 'blocked'} den, "
+          f"B={batch_size}: objf_mmi kernel={float(m_k['objf_mmi']):.9g} "
+          f"plain={float(m_p['objf_mmi']):.9g} |d|={d_objf:.2e} (tol 1e-4); "
+          f"grad_norm kernel={float(m_k['grad_norm']):.9g} plain="
+          f"{float(m_p['grad_norm']):.9g} |d|={d_gn:.2e} (tol 1e-3 "
+          "relative)", flush=True)
+    _check(d_objf <= 1e-4, f"{what}: f32 objf kernel vs plain")
+    _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
+           f"{what}: f32 grad_norm kernel vs plain")
 
 
 def _e2e_phase(torch, dev, gpu):
@@ -3454,14 +3574,10 @@ def _e2e_phase(torch, dev, gpu):
     run."""
     import tempfile
 
-    from tdnnf_nas_torch import convert
-    from tdnnf_nas_torch.data.egs import batch_iterator
     from tdnnf_nas_torch.graphs.den_graph import BlockedDenGraph
     from tdnnf_nas_torch.models import count_params
     from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
-    from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
     from tdnnf_nas_torch.tools import e2e_flagship as e2e
-    from tdnnf_nas_torch.train import init_train_state, make_train_step
 
     t_phase = time.perf_counter()
     _check(not torch.distributed.is_initialized(),
@@ -3469,7 +3585,13 @@ def _e2e_phase(torch, dev, gpu):
     torch.cuda.empty_cache()
     _reset_blocked(bdc)
     with tempfile.TemporaryDirectory() as out:
-        res = e2e.main(["all", "--smoke", "--out", out], device=dev)
+        sizes = dataclasses.replace(e2e.E2eSizes.smoke(), **E2E_CUT)
+        smoke = e2e.E2eSizes.smoke()
+        print("[e2e run] cut from the smoke sizes: " + ", ".join(
+            f"{k} {getattr(sizes, k)} (smoke {getattr(smoke, k)})"
+            for k in E2E_CUT), flush=True)
+        res = e2e.main(["all", "--smoke", "--out", out], device=dev,
+                       sizes=sizes)
         files = {}
         for what, name in e2e.Report.FILES.items():
             with open(os.path.join(out, name)) as f:
@@ -3562,41 +3684,260 @@ def _e2e_phase(torch, dev, gpu):
 
     # one float32 step of the run's model and trainer on its den,
     # through the kernels and through the plain scan (phase 4's bars)
-    cfg32 = e2e.model_config(setup.tree, setup.cfg, dtype="float32")
-    tc32 = e2e.trainer_config(sizes.train_steps)
-    host = next(batch_iterator(setup.bundle.egs(cfg32, chunk_width=50), 64,
-                               np.random.RandomState(0)))
-    batch = convert.batch_to_torch(host, dev)
-    st0 = init_train_state(cfg32, tc32, torch.Generator().manual_seed(0), dev)
-    step32 = make_train_step(cfg32, tc32, den_on_device(setup.bundle, dev),
-                             seed=1)
-    _, m_k = step32(copy.deepcopy(st0), batch)
-    plain = lambda device: (bdc.blocked_scan_fwd_plain,
-                            bdc.blocked_scan_bwd_plain)
-    n_before = _blocked_launches(bdc)
-    with mock.patch.object(bdc, "_scan_impl", plain):
-        _, m_p = step32(copy.deepcopy(st0), batch)
-    torch.cuda.synchronize()
-    _check(_blocked_launches(bdc) == n_before,
-           "the plain step launched no kernel")
-    d_objf = abs(float(m_k["objf_mmi"]) - float(m_p["objf_mmi"]))
-    d_gn = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"]))
-    print(f"[e2e f32 step] smoke den ({e2e_out['den_states']} states, "
-          f"{e2e_out['tree_pdfs']} pdfs), B=64: objf_mmi kernel="
-          f"{float(m_k['objf_mmi']):.9g} plain={float(m_p['objf_mmi']):.9g} "
-          f"|d|={d_objf:.2e} (tol 1e-4); grad_norm kernel="
-          f"{float(m_k['grad_norm']):.9g} plain="
-          f"{float(m_p['grad_norm']):.9g} |d|={d_gn:.2e} (tol 1e-3 "
-          f"relative); [e2e phase] {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
-    _check(d_objf <= 1e-4, "f32 objf kernel vs plain on the smoke den")
-    _check(d_gn <= 1e-3 * max(float(m_p["grad_norm"]), 1.0),
-           "f32 grad_norm kernel vs plain on the smoke den")
+    _kernel_vs_plain_step(
+        torch, dev, setup.bundle,
+        e2e.model_config(setup.tree, setup.cfg, dtype="float32"),
+        e2e.trainer_config(sizes.train_steps), 50, 64, "e2e")
+    print(f"[e2e phase] {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
+# ---- phase 15: the search experiments ----
+
+# Phase 15's cuts, each printed beside the reference's figure, to fit the
+# script's time limit (at the reference's sizes, and 300 utterances for
+# (c), phase 15 took 294.7 s on the card; with twice these steps and
+# decodes, 137.9-151.8 s): (a) the sanity check's (pretrain, cv-update,
+# child) steps, the reference's 320 / 800 / 260; (b) the planted table's
+# steps, its quick 120 / 200 / 150, and the test utterances each child
+# decodes, 10 of its 60; (c) the WER pipeline's E2eWerSizes, a few
+# hundred utterances with the reference's ladder and 400-leaf tree,
+# training, RNNLM and search steps and test utterances cut
+SANITY_SMOKE_STEPS = (40, 100, 30)
+TABLE_SMOKE_CUT = dict(pretrain_steps=30, cv_steps=40, child_steps=30,
+                       n_decode=10)
+WER_SMOKE_SIZES = dict(n_test=8, num_utts=160, train_steps=40,
+                       rnnlm_steps=30, pretrain_steps=20, cv_steps=20,
+                       child_steps=20)
+# the reference's files, whose keys phase 15's files must hold; sil's
+# files share their keys with these (docs/ has no run of that variant)
+SEARCH_DOCS = {"sanity": "search_sanity.json", "table": "search_table.json",
+               "wer": "e2e_wer_hard.json",
+               "wer_search": "search_table_e2e_hard.json"}
+
+
+def _softmax_rows(alphas, rows, places: int, what: str):
+    """The cv-update's alphas are finite, and each softmax row the file
+    writes, rounded to ``places``, sums to 1 within its rounding."""
+    _check(all(np.isfinite(a).all() for a in alphas),
+           f"{what}: the cv-update's alphas are finite")
+    rows = np.atleast_2d(np.asarray(rows, np.float64))
+    tol = rows.shape[-1] * 0.5 * 10.0 ** -places + 1e-9
+    _check(bool(np.all(np.abs(rows.sum(-1) - 1.0) <= tol)),
+           f"{what}: each affine softmax row sums to 1 within {tol:.1e}")
+
+
+def _hold_run(files: dict, docs: dict, report, launches, table_rows: dict,
+              pairs_per_row: int, what: str):
+    """What a search experiment's run must show at any size: its files'
+    keys are the reference's (nested dicts too, every table row's), every
+    objf finite, every WER finite and >= 0, each den kernel launched once
+    per training, supernet, cv-update and child step and the forward once
+    more per valid batch (steps from the run's metrics), and
+    ``pairs_per_row`` stride pairs in each table row."""
+    for name, got in files.items():
+        ref = docs[name]
+        _check(set(got) == set(ref), f"{what}: {name} holds the reference's "
+               "keys")
+        for k, v in ref.items():
+            if isinstance(v, dict) and k not in ("table", "child_table"):
+                _check(set(got[k]) == set(v), f"{what}: {name}[{k}] keys")
+    for name, rows in table_rows.items():
+        ref_row = set(next(iter(docs[name].get(
+            "table", docs[name].get("child_table", {})).values())))
+        _check(all(set(r) == ref_row for r in rows.values()),
+               f"{what}: every {name} row holds the reference's keys")
+        _check(all(len(r.get("strides", r.get("pairs"))) == pairs_per_row
+                   for r in rows.values()),
+               f"{what}: {pairs_per_row} stride pairs a row")
+    leaves = [(p, v) for f in files.values() for p, v in _walk(f)]
+    objf = [v for p, v in leaves if "objf" in p[-1] and p[-1] != "dev_objf_gap"]
+    wers = [v for p, v in leaves if p[-1] == "wer" or p[-1].startswith("wer_")]
+    _check(objf and all(np.isfinite(v) for v in objf),
+           f"{what}: every objf finite")
+    _check(all(np.isfinite(v) and v >= 0 for v in wers),
+           f"{what}: every WER finite and >= 0")
+    n_steps = sum(report.steps.values())
+    _check(launches == (n_steps + report.valid_batches, n_steps),
+           f"{what}: each den kernel once per step, the forward once more "
+           "per valid batch")
+    print(f"[{what}] steps {report.steps}, valid batches "
+          f"{report.valid_batches}; launches fwd={launches[0]} "
+          f"bwd={launches[1]}; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in report.seconds.items()),
+          flush=True)
+
+
+def _search_experiments_phase(torch, dev, gpu):
+    """Phase 15: the three search tools in this process, each into a
+    fresh temporary directory.  (a) ``search_sanity_planted.main`` at
+    ``SANITY_SMOKE_STEPS`` (phase 5 holds the dense pair at its den's
+    shape); (b) ``search_planted_table.main(quick=True)`` cut by
+    ``TABLE_SMOKE_CUT`` and the blocked pair on its den at B = 48,
+    T = 24; (c) ``e2e_wer_pipeline.main(["all", "--variant", "sil"])`` at
+    ``WER_SMOKE_SIZES``.  Each run is held to ``_hold_run``, its den's
+    form, its arithmetic and one float32 step against the plain scan.
+    Returns (dense launches, blocked launches, the blocked pair's fields
+    at B = 48)."""
+    import tempfile
+
+    from tdnnf_nas_torch.graphs.den_graph import BlockedDenGraph
+    from tdnnf_nas_torch.models import count_params, init_model
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
+    from tdnnf_nas_torch.ops.fwdbwd import DenGraphArrays
+    from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
+    from tdnnf_nas_torch.tools import e2e_wer_pipeline as wer
+    from tdnnf_nas_torch.tools import search_planted_table as spt
+    from tdnnf_nas_torch.tools import search_sanity_planted as ssp
+    from tdnnf_nas_torch.train import ChainObjectiveConfig, TrainerConfig
+
+    docs = {k: json.load(open(os.path.join(REPO, "docs", v)))
+            for k, v in SEARCH_DOCS.items()}
+    torch.cuda.empty_cache()
+    tc32 = TrainerConfig(objective=ChainObjectiveConfig())
+
+    def manual_params(mc):
+        return count_params(init_model(mc, torch.Generator().manual_seed(0),
+                                       device="cpu")[0])
+
+    # ---- (a) the sanity check: dense den, S = 16 ----
+    t0 = time.perf_counter()
+    ddc.dense_den_fwd_cuda.launches = ddc.dense_den_bwd_cuda.launches = 0
+    print("[sanity] steps cut from the reference's: pretrain, cv-update, "
+          f"child {SANITY_SMOKE_STEPS} (320, 800, 260)", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        res = ssp.main(*SANITY_SMOKE_STEPS, out=out, device=dev)
+        with open(os.path.join(out, ssp.FILE)) as f:
+            sanity = json.load(f)
+    torch.cuda.synchronize()
+    dense_launches = _dense_launches(ddc)
+    t_a = time.perf_counter() - t0
+    bundle = res.bundle
+    _check(isinstance(bundle.den_arrays, DenGraphArrays)
+           and bundle.den_fsa is None and bundle.den.num_states == 16,
+           "sanity: a dense den of 16 states")
+    _hold_run({"sanity": sanity}, docs, res.report, dense_launches,
+              {"sanity": sanity["child_table"]}, 1, "sanity")
+    table = sanity["child_table"]
+    _check(sanity["dev_objf_gap"] == round(
+        table["searched_top1"]["dev_objf"] - table["no_lookahead"]["dev_objf"],
+        4), "sanity: dev_objf_gap is the difference of the dev objfs")
+    _check(sanity["planted_reach_found"] == bool(
+        sanity["top1_affine_stride"] in (2, 3)
+        and sanity["reachable_mass"] > 0.8),
+        "sanity: planted_reach_found is its own arithmetic")
+    _softmax_rows(res.alphas, sanity["affine_softmax"], 4, "sanity")
+    ref = docs["sanity"]
+    print(f"[sanity] {t_a:.1f} s ({gpu}): affine softmax "
+          f"{sanity['affine_softmax']} ({ref['affine_softmax']}), reachable "
+          f"mass {sanity['reachable_mass']} ({ref['reachable_mass']}), "
+          f"found {sanity['planted_reach_found']} "
+          f"({ref['planted_reach_found']}), entropies after the cv-update "
+          f"{sanity['alpha_entropy_after_cvupdate']} "
+          f"({ref['alpha_entropy_after_cvupdate']}), dev objf gap "
+          f"{sanity['dev_objf_gap']} ({ref['dev_objf_gap']}); reference's "
+          "figures in brackets", flush=True)
+    _kernel_vs_plain_step(torch, dev, bundle, res.base, tc32, ssp.CHUNK,
+                          ssp.BATCH, "sanity")
+    del res, bundle
+
+    # ---- (b) the planted table at its quick sizes: blocked den ----
+    t0 = time.perf_counter()
+    _reset_blocked(bdc)
+    quick = spt.TableSizes.preset(True)
+    sizes = dataclasses.replace(quick, **TABLE_SMOKE_CUT)
+    was = dict(dataclasses.asdict(quick), n_decode=quick.n_test)
+    print("[table] sizes cut from the quick preset's: " + ", ".join(
+        f"{k} {getattr(sizes, k)} (quick {was[k]})" for k in TABLE_SMOKE_CUT),
+        flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        res = spt.main(quick=True, out=out, device=dev, sizes=sizes)
+        with open(os.path.join(out, spt.FILE)) as f:
+            tab = json.load(f)
+    torch.cuda.synchronize()
+    blocked_launches = _blocked_launches(bdc)
+    t_b = time.perf_counter() - t0
+    bundle, mc = res.setup.bundle, res.model_cfg
+    _check(isinstance(bundle.den_arrays, BlockedDenGraph),
+           "table: the den took the blocked form")
+    _hold_run({"table": tab}, docs, res.report, blocked_launches,
+              {"table": tab["table"]}, 5, "table")
+    _check(tab["diagnosis_round3"] == docs["table"]["diagnosis_round3"],
+           "table: diagnosis_round3 verbatim")
+    _check(all(r["lookahead_reach"] == 1 + sum(a for _, a in r["strides"]) + 2
+               for r in tab["table"].values()),
+           "table: lookahead_reach is its own arithmetic")
+    _check(tab["table"]["manual_baseline"]["params"] == manual_params(mc),
+           "table: the manual row's params are the manual config's")
+    _softmax_rows(res.search.alphas, tab["affine_softmax"], 3, "table")
+    ref = docs["table"]
+    print(f"[table] {t_b:.1f} s ({gpu}): tree {res.setup.tree.num_pdfs} pdfs, "
+          f"den {bundle.den_fsa.num_states} states; alpha entropy "
+          f"{tab['alpha_entropy']} ({ref['alpha_entropy']}); WER "
+          + ", ".join(f"{k} {v['wer']} ({ref['table'][k]['wer']})"
+                      for k, v in tab["table"].items())
+          + "; params " + ", ".join(f"{k} {v['params']:,}"
+                                    for k, v in tab["table"].items())
+          + "; reference's full-scale figures in brackets", flush=True)
+    blocked = _blocked_check(torch, dev, gpu, den_on_device(bundle, dev),
+                             res.setup.tree.num_pdfs, spt.SEARCH_BATCH,
+                             t=spt.CHUNK)
+    _kernel_vs_plain_step(torch, dev, bundle, mc.replace(
+        compute_dtype="float32"), tc32, spt.CHUNK, spt.SEARCH_BATCH, "table")
+    del res, bundle
+
+    # ---- (c) the WER pipeline, silence variant, cut to fit ----
+    t0 = time.perf_counter()
+    sizes = dataclasses.replace(wer.E2eWerSizes.full(), **WER_SMOKE_SIZES)
+    full = wer.E2eWerSizes.full()
+    print("[wer] sizes cut from the reference's: " + ", ".join(
+        f"{k} {getattr(sizes, k)} (reference {getattr(full, k)})"
+        for k in WER_SMOKE_SIZES), flush=True)
+    n0 = _blocked_launches(bdc)
+    with tempfile.TemporaryDirectory() as out:
+        res = wer.main(["all", "--variant", "sil", "--out", out], device=dev,
+                       sizes=sizes)
+        names = wer.file_names("sil")
+        files = {}
+        for what, key in (("e2e", "wer"), ("search", "wer_search")):
+            with open(os.path.join(out, names[what])) as f:
+                files[key] = json.load(f)
+    torch.cuda.synchronize()
+    n1 = _blocked_launches(bdc)
+    launches = tuple(b - a for a, b in zip(n0, n1))
+    t_c = time.perf_counter() - t0
+    bundle, mc = res.setup.bundle, res.base.model_cfg
+    e2e, stab = files["wer"], files["wer_search"]
+    _check(isinstance(bundle.den_arrays, BlockedDenGraph),
+           "wer: the den took the blocked form")
+    _check(e2e["silence"] is True and res.setup.cfg.silence_prob > 0,
+           "wer: the silence corpus and its HCLG")
+    _hold_run(files, docs, res.report, launches,
+              {"wer_search": stab["table"]}, 5, "wer")
+    _check(stab["table"]["manual_baseline"]["params"] == manual_params(mc),
+           "wer: the manual row's params are the manual config's")
+    ref, ref_s = docs["wer"], docs["wer_search"]
+    print(f"[wer] {t_c:.1f} s ({gpu}): tree {e2e['tree_pdfs']} pdfs, den "
+          f"{e2e['den_states']} states, HCLG {e2e['hclg_states']} states; "
+          f"objf {e2e['train_objf_mmi']}; WER first pass "
+          f"{e2e['wer_first_pass_tg']}, 4-gram {e2e['wer_4gram_rescore']}, "
+          f"RNNLM {e2e['wer_rnnlm_rescore']}; table WER "
+          + ", ".join(f"{k} {v['wer']}" for k, v in stab["table"].items())
+          + f" (the hard variant's full run: first pass "
+          f"{ref['wer_first_pass_tg']}, table "
+          + ", ".join(f"{k} {v['wer']}" for k, v in ref_s["table"].items())
+          + ")", flush=True)
+    _kernel_vs_plain_step(torch, dev, bundle, mc.replace(
+        compute_dtype="float32"), tc32, spt.CHUNK, spt.SEARCH_BATCH, "wer")
+    blocked_launches = tuple(a + b for a, b in zip(blocked_launches, launches))
+    print(f"[phase 15] (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s "
+          f"(budget 240 s in all)", flush=True)
+    return dense_launches, blocked_launches, blocked
+
+
 def _smoke(torch, phase) -> int:
-    """Phases 0-14, then the kernels line and the result line."""
+    """Phases 0-15, then the kernels line and the result line."""
     sys.path.insert(0, REPO)
     from tdnnf_nas_torch import convert
     from tdnnf_nas_torch.data import native
@@ -3802,17 +4143,27 @@ def _smoke(torch, phase) -> int:
     with phase(14, "e2e flagship"):
         e2e_launches = _e2e_phase(torch, dev, gpu)
 
-    for k in ("fwd", "bwd"):
+    # ---- 15. the search experiments: sanity, planted table, WER ----
+    with phase(15, "search experiments"):
+        search_dense, search_blocked, b48 = _search_experiments_phase(
+            torch, dev, gpu)
+
+    for i, k in enumerate(("fwd", "bwd")):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
               f"loader-fed phase {loader_launches[k]}, decode-phase "
               f"training {decode_launches[k]}, LHUC steps "
               f"{lhuc_launches[k]}, +-1 steps {pm1_launches[k]}, phase 11 "
               f"steps {trainer_launches[k]}, data-parallel phase "
-              f"{dp_launches[k]}, e2e run {e2e_launches[k]}", flush=True)
+              f"{dp_launches[k]}, e2e run {e2e_launches[k]}, search "
+              f"experiments {search_blocked[i]}", flush=True)
         launches[k] += (loader_launches[k] + decode_launches[k]
                         + lhuc_launches[k] + pm1_launches[k]
                         + trainer_launches[k] + dp_launches[k]
-                        + e2e_launches[k])
+                        + e2e_launches[k] + search_blocked[i])
+    for i, row in enumerate(dense):
+        print(f"[launches] {row['name']}: phases 5-6 {row['launches']}, "
+              f"search experiments {search_dense[i]}", flush=True)
+        row["launches"] += search_dense[i]
 
     kernels = [
         {"name": f"blocked_den_{k}", "route": "cuda",
@@ -3820,9 +4171,10 @@ def _smoke(torch, phase) -> int:
          "replaces": f"{_TPU_KERNELS}:{line}", "launches": launches[k],
          **blk[k],
          "max_abs_err": max(blk[k]["max_abs_err"], b16[k]["max_abs_err"],
-                            pm1[k]["max_abs_err"]),
+                            pm1[k]["max_abs_err"], b48[k]["max_abs_err"]),
          **{f"{key}_b16": v for key, v in b16[k].items()},
-         **{f"{key}_pm1": v for key, v in pm1[k].items()}}
+         **{f"{key}_pm1": v for key, v in pm1[k].items()},
+         **{f"{key}_b48": v for key, v in b48[k].items()}}
         for k, line in (("fwd", 282), ("bwd", 343))
     ] + dense
     print(gpu)

@@ -168,7 +168,8 @@ class Report:
     """What a run writes and what it counted.  ``e2e``, ``bf16`` and
     ``search`` are the contents of the reference's three files, each
     written to ``out_dir`` (when given; only those named in ``files``)
-    as it grows; ``seconds`` holds
+    under its name in ``names`` (default ``FILES``) as it grows;
+    ``seconds`` holds
     each stage's seconds; ``steps`` the model steps each stage took
     (from its metrics), ``lhuc_steps`` the LHUC steps and
     ``valid_batches`` the batches stage 9's valid steps scored."""
@@ -176,9 +177,11 @@ class Report:
     FILES = {"e2e": "e2e_flagship.json", "bf16": "bf16_parity.json",
              "search": "search_table_flagship.json"}
 
-    def __init__(self, out_dir: Optional[str] = None, files=tuple(FILES)):
+    def __init__(self, out_dir: Optional[str] = None, files=None,
+                 names: Optional[dict] = None):
         self.out_dir = out_dir
-        self.files = files
+        self.names = dict(self.FILES if names is None else names)
+        self.files = tuple(self.names) if files is None else files
         self.e2e: dict = {}
         self.bf16: dict = {}
         self.search: dict = {}
@@ -191,7 +194,7 @@ class Report:
 
     def save(self, what: str = "e2e") -> None:
         if self.out_dir and what in self.files:
-            with open(os.path.join(self.out_dir, self.FILES[what]), "w") as f:
+            with open(os.path.join(self.out_dir, self.names[what]), "w") as f:
                 json.dump(getattr(self, what), f, indent=2)
 
     @contextlib.contextmanager

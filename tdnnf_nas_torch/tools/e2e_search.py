@@ -10,6 +10,14 @@ random ones and the manual 7q, each retrained, scored on the dev set and
 decoded.  Every supernet, cv-update and child step launches the
 blocked-den forward and adjoint kernels once, every valid batch the
 forward once.
+
+The search tools share the pieces of their tables: ``cv_batch_size``
+(the cv-update's batch, capped at the dev split), ``child_row`` (a
+child's retrain, its dev objf over the first valid batches, its decode
+and its parameter count), ``mean_entropy``, ``rand_arch``,
+``stride_pairs``, ``lookahead_reach`` and ``alpha_arrays``;
+``tools/search_planted_table``, ``tools/search_sanity_planted`` and
+``tools/e2e_wer_pipeline`` call them.
 """
 
 from __future__ import annotations
@@ -116,30 +124,73 @@ def lookahead_reach(pairs) -> int:
     return 1 + sum(a for _, a in pairs) + 2
 
 
-def _alphas(state):
+def alpha_arrays(state):
+    """(linear, affine) offset alphas of a supernet state as numpy."""
     return tuple(state.alphas[k].detach().float().cpu().numpy()
                  for k in ("offsets_linear", "offsets_affine"))
 
 
-def dev_objf(setup: Setup, ccfg, tc, state, report: Report,
+def cv_batch_size(bundle, darts, chunk_width: int, tag: str,
+                  batch: int = SEARCH_BATCH) -> int:
+    """The cv-update's batch: ``batch``, or the dev split's supernet
+    chunks when it holds fewer (the reference's ``train_model`` raises
+    there; the cap is printed under ``tag``)."""
+    n = min(batch, len(bundle.egs(None, chunk_width=chunk_width, dev=True,
+                                  supernet_cfg=darts)))
+    if n < batch:
+        print(f"[{tag}] cv-update batch {n}: the dev split's chunks",
+              flush=True)
+    return n
+
+
+def dev_objf(bundle, ccfg, tc, state, report: Report, chunk_width: int,
+             num_batches: int, max_phones_per_chunk: int = 24,
              device=DEFAULT_DEVICE) -> float:
-    """Mean valid-step objf over the first 6 dev batches of 16
-    (``RandomState(0)``, ``:673-682``).  The reference's endless batch
-    iterator never yields for fewer than 16 dev chunks; the port raises
-    ValueError there."""
-    vstep = make_valid_step(ccfg, tc, den_on_device(setup.bundle, device))
-    chunks = setup.bundle.egs(ccfg, chunk_width=50, max_phones_per_chunk=40,
-                              dev=True)
+    """Mean valid-step objf over the first ``num_batches`` dev batches of
+    16 (``RandomState(0)``; ``scripts/e2e_flagship.py:673-682``).  The
+    reference's endless batch iterator never yields for fewer than 16 dev
+    chunks; the port raises ValueError there."""
+    vstep = make_valid_step(ccfg, tc, den_on_device(bundle, device))
+    chunks = bundle.egs(ccfg, chunk_width=chunk_width,
+                        max_phones_per_chunk=max_phones_per_chunk, dev=True)
     if len(chunks) < VALID_BATCH:
         raise ValueError(f"{len(chunks)} dev chunks for a valid batch of "
                          f"{VALID_BATCH}")
     vals = []
     for b in itertools.islice(batch_iterator(
-            chunks, VALID_BATCH, np.random.RandomState(0)), VALID_BATCHES):
+            chunks, VALID_BATCH, np.random.RandomState(0)), num_batches):
         vals.append(float(vstep(state, convert.batch_to_torch(b, device))
                           ["objf_mmi"]))
         report.valid_batches += 1
     return float(np.mean(vals))
+
+
+def child_row(bundle, ccfg, tc, num_steps: int, report: Report, name: str,
+              batch_size: int, chunk_width: int, valid_batches: int,
+              decode_fn=None, dev_max_phones: int = 24,
+              log_every: int = 200, device=DEFAULT_DEVICE) -> dict:
+    """One child of a search table, as every table trains it: ``num_steps``
+    of ``train_model`` (seed 7, chunks of at most 24 phones), the dev objf
+    over the first ``valid_batches`` dev batches (chunks of at most
+    ``dev_max_phones``), and with ``decode_fn(ccfg, state)`` its WER.
+    Returns the row: strides, lookahead_reach, params, train_objf,
+    dev_objf (and wer), rounded as the references write them; its steps
+    are recorded as ``child_<name>``."""
+    st, mets = train_model(bundle, ccfg, tc, num_steps,
+                           batch_size=batch_size, chunk_width=chunk_width,
+                           seed=7, log_every=log_every, device=device)
+    report.trained(f"child_{name}", mets)
+    d_objf = dev_objf(bundle, ccfg, tc, st, report, chunk_width,
+                      valid_batches, dev_max_phones, device=device)
+    pairs = stride_pairs(ccfg)
+    row = {"strides": [list(p) for p in pairs],
+           "lookahead_reach": lookahead_reach(pairs),
+           "params": int(count_params(st.params)),
+           "train_objf": round(mets.last("objf_mmi"), 4),
+           "dev_objf": round(d_objf, 4)}
+    if decode_fn is not None:
+        row["wer"] = round(decode_fn(ccfg, st)["wer"], 2)
+    return row
 
 
 def run_search(setup: Setup, base: Optional[BaseRun] = None,
@@ -178,11 +229,7 @@ def run_search(setup: Setup, base: Optional[BaseRun] = None,
     # reference's smoke sizes cut to 47 chunks: the batch is capped there
     # (the reference raises, as train_model does for a short split)
     cv = {}
-    cv_batch = min(SEARCH_BATCH, len(bundle.egs(
-        None, chunk_width=50, dev=True, supernet_cfg=darts)))
-    if cv_batch < SEARCH_BATCH:
-        print(f"[9] cv-update batch {cv_batch}: the dev split's chunks",
-              flush=True)
+    cv_batch = cv_batch_size(bundle, darts, 50, "9")
     with report.stage("9 cv-updates"):
         for cv_seed in (1, 11):
             cv_tc = TrainerConfig(
@@ -196,7 +243,7 @@ def run_search(setup: Setup, base: Optional[BaseRun] = None,
                                 init_state=sup_state, dev=True,
                                 log_every=200, device=dev)
             report.trained(f"cv_{cv_seed}", m)
-            cv[cv_seed] = _alphas(st)
+            cv[cv_seed] = alpha_arrays(st)
     del sup_state
     a_lin, a_aff = cv[1]
     ent = (mean_entropy(a_lin) + mean_entropy(a_aff)) / 2
@@ -216,21 +263,11 @@ def run_search(setup: Setup, base: Optional[BaseRun] = None,
     for name, ccfg in contenders(mc, top1, top2, seed2_top1).items():
         tc = trainer_config(sizes.child_steps)
         with report.stage(f"9 child {name}"):
-            st, mets = train_model(bundle, ccfg, tc, sizes.child_steps,
-                                   batch_size=64, chunk_width=50, seed=7,
-                                   log_every=250, device=dev)
-            report.trained(f"child_{name}", mets)
-            d_objf = dev_objf(setup, ccfg, tc, st, report, device=dev)
-            rep = decode(setup, ccfg, st, g, device=dev)
-        pairs = stride_pairs(ccfg)
-        table[name] = {
-            "strides": [list(p) for p in pairs],
-            "lookahead_reach": lookahead_reach(pairs),
-            "params": int(count_params(st.params)),
-            "train_objf": round(mets.last("objf_mmi"), 4),
-            "dev_objf": round(d_objf, 4),
-            "wer": round(rep["wer"], 2),
-        }
+            table[name] = child_row(
+                bundle, ccfg, tc, sizes.child_steps, report, name,
+                batch_size=64, chunk_width=50, valid_batches=VALID_BATCHES,
+                decode_fn=lambda c, st: decode(setup, c, st, g, device=dev),
+                dev_max_phones=40, log_every=250, device=dev)
         print(f"[9] {name}: dev_objf={table[name]['dev_objf']} "
               f"wer={table[name]['wer']}", flush=True)
 

@@ -20,7 +20,9 @@ from tdnnf_nas_torch.ops import extras
 from tdnnf_nas_torch.parallel import mesh as mesh_mod
 from tdnnf_nas_torch.parallel import multihost
 from tdnnf_nas_torch.recipes import chain_recipes
-from tdnnf_nas_torch.tools import e2e_flagship, e2e_search
+from tdnnf_nas_torch.tools import (e2e_flagship, e2e_search, e2e_wer_pipeline,
+                                   search_planted_table,
+                                   search_sanity_planted)
 from tdnnf_nas_torch.train import trainer
 from tdnnf_nas_torch.train.optimizer import tree_paths
 
@@ -65,6 +67,12 @@ _ENTRY_POINTS = {
     "run_base": (e2e_flagship.run_base, (None,)),
     "run_search": (e2e_search.run_search, (None,)),
     "e2e_main": (e2e_flagship.main, (["all", "--out", "unused"],)),
+    "search_sanity_main": (search_sanity_planted.main, ()),
+    "search_table_main": (search_planted_table.main, ()),
+    "e2e_wer_main": (e2e_wer_pipeline.main, (["all", "--out", "unused"],)),
+    "e2e_wer_build_setup": (e2e_wer_pipeline.build_setup, ("sil", None)),
+    "e2e_wer_run_base": (e2e_wer_pipeline.run_base, (None,)),
+    "e2e_wer_run_search": (e2e_wer_pipeline.run_search, (None,)),
     "featurize_batch": (audio.featurize_batch, ([np.zeros(400)], None)),
     "init_bayes_model": (bayes.init_bayes_model, (None, None)),
     "init_cnn_frontend": (cnn.init_cnn_frontend, (None, None)),

@@ -35,7 +35,7 @@ def test_port_and_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 56
+    assert int(out.stdout.strip().splitlines()[-1]) >= 59
 
 
 def forbidden_imports(source: str, filename: str = "<source>"):
@@ -74,7 +74,7 @@ def test_no_port_source_imports_jax_anywhere():
     statement: the import probe above cannot see an import that sits in
     a function it never calls."""
     files = _port_sources()
-    assert len(files) >= 58
+    assert len(files) >= 61
     bad = {}
     for path in files:
         with open(path) as f:
@@ -82,6 +82,26 @@ def test_no_port_source_imports_jax_anywhere():
         if hits:
             bad[os.path.relpath(path, _REPO)] = hits
     assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["search_sanity_planted",
+                                  "search_planted_table", "e2e_wer_pipeline"])
+def test_search_tools_import_neither_jax_nor_scripts(name):
+    """The three search tools are scanned with the rest of the port, and
+    carry their own copies of the reference scripts' numpy pieces: no
+    import of ``scripts`` either."""
+    path = os.path.join(_REPO, "tdnnf_nas_torch", "tools", f"{name}.py")
+    assert path in _port_sources()
+    with open(path) as f:
+        source = f.read()
+    assert forbidden_imports(source, path) == []
+    mods = []
+    for node in ast.walk(ast.parse(source, path)):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods.append(node.module or "")
+    assert mods and not [m for m in mods if m.split(".")[0] == "scripts"]
 
 
 @pytest.mark.parametrize("source, want", [
