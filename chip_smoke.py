@@ -16,17 +16,30 @@ optimizer kinds and the Bayes/GP and CNN-TDNN-F families, then the
 bench-scale +-1 den through the factored scan and data parallel over
 two ranks, then the whole flagship run of ``tools/e2e_flagship``, then
 the three search experiments (``tools/search_sanity_planted``,
-``tools/search_planted_table``, ``tools/e2e_wer_pipeline``).
-Checks the
+``tools/search_planted_table``, ``tools/e2e_wer_pipeline``), then the
+five comparison drivers (``tools/lhuc_regularized``,
+``tools/rnnlm_fair_fight``, ``tools/context_compare``,
+``tools/wpd_compare``, ``tools/wer_synthetic``).  Checks the
 hand-written CUDA kernels of each path
-against their plain PyTorch versions.  Phases, each raising on failure:
+against their plain PyTorch versions.
+
+Before phase 0 the script starts a host worker (``python3 chip_smoke.py
+--host-worker DIR``: no card visible, its BLAS, OpenMP and torch threads
+capped at ``HOST_WORKER_THREADS``), which builds on the CPU, while the
+card runs the earlier phases, phase 12's host set-up and then phase
+16's, each handed over as a pickle in DIR (written to a temporary name,
+then renamed); the phase that needs one waits for it and prints the
+wait, and a worker that exits first fails that phase by name (nothing is
+built in its place).  Phases, each raising on failure:
 
   0. build both kernel libraries from ``tdnnf_nas_torch/csrc`` (one nvcc
-     per source, started together, sm_90a), then with g++ the decoders,
-     the loader's copy ``csrc/egs_loader.cc`` and the supervision
-     builder ``native/egs_builder.cc``;
+     per source, sm_90a) and with g++ the decoders, the loader's copy
+     ``csrc/egs_loader.cc`` and the supervision builder
+     ``native/egs_builder.cc``, all started together;
   1. flagship host setup (the ``bench.py`` setup, through the port's own
-     numpy host modules): 10,271 den states, 18,751,248 params;
+     numpy host modules; the corpus, tree and den built by the host
+     worker while phase 0 builds): 10,271 den states, 18,751,248
+     params;
   2. kernel vs plain at the flagship den shape, float32 and bf16 obs,
      with each tolerance and its reason, two kernel runs equal bit for
      bit (``_blocked_check``); kernel and plain timings, the
@@ -111,7 +124,7 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      scores within 1e-4); then LHUC (``tools/e2e_flagship``, stage 7):
      the blocked pair against its plain version at B = 16 on phase 8's
      den, with phase 2's checks, times and bounds; launch counters
-     reset, 24 SGD steps a speaker of the first 20 test utterances at
+     reset, 24 SGD steps a speaker of the first 8 test utterances at
      B = 16 and the adapted decode
      (WER before and after, ms/step, objf finite at every step, each
      blocked kernel once a step, each speaker's largest adapted logit
@@ -123,8 +136,8 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      (``tools/e2e_flagship.bootstrap_stage``) with the SMOKE ladder of
      ``e2e_flagship.py:149-155`` on the card (mono log-likelihood per
      iteration, fmllr_gain, seconds), every phone begin held to the
-     port's CPU run of the same ladder (>= 99.9% equal, also on the first
-     40 utterances), then the 400-leaf +-1 tree; the committed trigram
+     port's CPU run of the same ladder (the host worker's; >= 99.9%
+     equal, also on the first 40 utterances), then the 400-leaf +-1 tree; the committed trigram
      den (300 extra LM states) with its wildcard term (states, arcs,
      wildcard positions, R, C/NSRC/NDP, seconds); the blocked pair with
      the wildcard against its plain version at B = 64, T = 50 on it
@@ -158,10 +171,11 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      ``tools/pm1_den_scale.py`` on phase 1's corpus: the 6,034-pdf +-1
      tree, ``prepare_data`` (4-gram LM, 2,000 extra states), whose
      ``to_blocked`` refuses the committed den (the refusal printed) and
-     whose factored export takes the arc-list form (no [S, K] table):
-     states, positions, arcs, K, bytes on the card, each host stage's
-     seconds; the factored scan card vs CPU in float32 at B = 2, T = 50
-     (logZ rtol 1e-5, obs gradient atol 2e-5, two card runs bit for
+     whose factored export takes the arc-list form (no [S, K] table),
+     built by the host worker on the corpus it built for phase 1 (so the
+     same corpus by construction): states, positions, arcs, K, bytes on
+     the card, each host stage's seconds in the worker; the factored
+     scan card vs CPU in float32 at B = 2, T = 50 (logZ rtol 1e-5, obs gradient atol 2e-5, two card runs bit for
      bit); 10 bf16 flagship steps through it (objf finite, ms/step, one
      scan's ms, peak GiB, idle share over 2 profiled steps);
      ``forward_score_sparse`` on phase 5's biphone den against the dense
@@ -199,7 +213,7 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      table rows of 14 stride pairs with ``manual_baseline`` at stage
      4's parameter count; then one float32 step of the run's model on
      its den through the kernels against the plain scan (objf 1e-4,
-     ``grad_norm`` 1e-3 relative).  It runs at ``E2E_CUT``: 10 test
+     ``grad_norm`` 1e-3 relative).  It runs at ``E2E_CUT``: 4 test
      utterances, 50 RNNLM, 40 no-i-vector and 30 A/B steps, and 40
      supernet, 30 cv-update and 25 child steps, against the smoke
      sizes' 20, 150, 120, 60, 80, 60 and 100;
@@ -225,7 +239,29 @@ against their plain PyTorch versions.  Phases, each raising on failure:
      the manual config, and one float32 step of the run's model on its
      den through the kernels against the plain scan (objf 1e-4,
      ``grad_norm`` 1e-3 relative); its seconds and the reference's
-     figures are printed, never held.
+     figures are printed, never held;
+ 16. (``_comparison_drivers_phase``) the comparison drivers, each tool's
+     ``main`` in this process into a fresh temporary directory: (a)
+     ``lhuc_regularized`` and (b) ``rnnlm_fair_fight`` on phase 14's
+     set-up with its first ``COMPARE_TEST_UTTS`` test utterances (no
+     set-up rebuilt; (a) patches a copy of phase 14's
+     ``e2e_flagship.json``); (c) ``context_compare --mode symhard`` and
+     (d) ``wpd_compare`` on the host worker's corpora, trees, dens and
+     HCLGs; (e) ``wer_synthetic`` at the reference's sizes; each cut
+     (``LHUC_SMOKE``, ``FIGHT_SMOKE``, ``CC_SMOKE``, ``WPD_SMOKE``)
+     printed beside the reference's figure.  Each run is held to what
+     holds at any size: the reference file's keys at every level (table
+     rows, variants, sweeps), every objf finite, every WER finite and
+     >= 0, ``best_variant`` the first of least ``wer_after`` and the
+     patched ``lhuc_noiv`` row its row, ``interp_weight_dev_choice`` the
+     dev half's least WER with its eval figure, each contender's den
+     blocked with the wildcard term exactly for ``pm1``, (e)'s den
+     dense, and each den kernel launched once per training and LHUC step
+     and the forward once more per valid batch; then the blocked pair
+     against its plain version on (c)'s ``pm1`` den at B = 48, T = 40
+     (``_ctx`` keys), the dense pair on (e)'s den at B = 16, T = 20
+     (``_ws`` keys), and one float32 step through the kernels against
+     the plain scan for (c)'s ``pm1`` contender and for (e).
 
 Each phase prints ``[phase N name] start`` before it and ``[phase N
 name] ok <s> s`` after it; a failure prints ``[phase N name] FAILED:``
@@ -237,17 +273,21 @@ three TF32 tensor-core passes ``bound_ms_3xtf32``,
 ``launches_per_scan`` and, for the blocked pair, each of phase 2's
 fields again at LHUC's batch with the suffix ``_b16``, on phase 10's
 +-1 den with the suffix ``_pm1`` and on phase 15's planted-table den at
-B = 48 with the suffix ``_b48``; for the dense pair the B = 32 time,
-yardstick and bound (``_b32``) and phase 5's check at phase 15's
-sanity den (S = 16) with the suffix ``_sanity``; the blocked rows' launches include phase 11's
-steps, phase 13's, every rank's, phase 14's and phase 15's, the dense
-rows' phase 15's sanity run), and as
+B = 48 with the suffix ``_b48`` and on phase 16's ``pm1`` contender den
+at B = 48, T = 40 with the suffix ``_ctx``; for the dense pair the B =
+32 time, yardstick and bound (``_b32``), phase 5's check at phase 15's
+sanity den (S = 16) with the suffix ``_sanity`` and phase 16's on
+``wer_synthetic``'s den (B = 16, T = 20) with the suffix ``_ws``; the
+blocked rows' launches include phase 11's steps, phase 13's, every
+rank's, phase 14's, phase 15's and phase 16's, the dense rows' phase
+15's sanity run and phase 16's ``wer_synthetic``), and as
 its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
 
-Usage: python3 chip_smoke.py   (``--dp-rank DIR`` is phase 13's rank)
+Usage: python3 chip_smoke.py   (``--dp-rank DIR`` is phase 13's rank,
+``--host-worker DIR`` the host worker)
 """
 
 from __future__ import annotations
@@ -1257,13 +1297,14 @@ def _rel_ok(a, b, rtol: float, atol: float = 0.0) -> bool:
 # (vocab 2,500, 4,000 LM text sentences) at 800 utterances, 40 held out.
 # Phase 9 searches each 20-best list for at most 20,000 A* pops (the
 # reference's 200,000 took ~50 s on lattices with fewer than 20 sequences)
-# and adapts the speakers of the first 20 test utterances: phase 14 runs
-# the reference's own n-best and LHUC, and the script keeps to its clock.
+# and adapts the speakers of the first 8 test utterances (20 took 37 s of
+# LHUC steps at ~70 ms): phase 14 runs the reference's own n-best and
+# LHUC, and the script keeps to its clock on a slow host too.
 DECODE_SIZES = dict(num_utts=800, vocab_size=2500, num_text_sents=4000,
                     n_test=40, train_steps=200, n_check=4, n_numpy=3,
                     n_oracle=10, max_active=10000, ubm_utts=150,
                     tmat_utts=600, rnnlm_steps=500, nbest=20,
-                    nbest_pops=20000, n_lhuc=20, n_incremental=3)
+                    nbest_pops=20000, n_lhuc=8, n_incremental=3)
 
 
 def _ivector_stage(torch, dev, gpu, utts, train):
@@ -1823,21 +1864,56 @@ PM1_CORPUS = dict(vocab_size=300, num_phones=30, feat_dim=24, num_utts=720,
 PM1_TEST, PM1_LEAVES, PM1_STEPS = 60, 400, 20
 
 
-def _tri5_7d_phase(torch, dev, gpu):
+def _tri5_7d_corpus():
+    """Phase 10's corpus (context_compare.py's ``sym``): (training
+    utterances, their phones, speakers, phone count, topology)."""
+    from tdnnf_nas_torch.data.synthetic import (WordCorpusConfig,
+                                                make_word_corpus)
+
+    cfg = WordCorpusConfig(**PM1_CORPUS)
+    utts, _, _, _, _, topo = make_word_corpus(cfg)[:6]
+    train = utts[PM1_TEST:]
+    return (train, [u.phones for u in train], [u.speaker for u in train],
+            cfg.num_phones, topo)
+
+
+def _tri5_7d_ladder_config():
+    """The SMOKE ladder of e2e_flagship.py:149-155."""
+    from tdnnf_nas_torch.gmm import GmmLadderConfig, MonoHmmConfig
+
+    return GmmLadderConfig(
+        mono=MonoHmmConfig(num_iters=8, max_mix=2, mix_up_iters=(4,)),
+        tri_leaves=120, tri_em_iters=6, splice_context=2, lda_dim=36,
+        lda_mllt_em_iters=5, sat_em_iters=4, train_subset=80)
+
+
+def _tri5_7d_cpu_ladder() -> dict:
+    """Phase 10's CPU run of the ladder, built by the host worker:
+    {"begins", "fmllr_gain", "seconds_ladder"}."""
+    from tdnnf_nas_torch.gmm.ladder import run_gmm_ladder
+
+    train, phones, speakers, n_phones, _ = _tri5_7d_corpus()
+    t0 = time.perf_counter()
+    cpu = run_gmm_ladder([u.feats for u in train], phones, n_phones,
+                         _tri5_7d_ladder_config(), speakers=speakers,
+                         device="cpu")
+    return {"begins": [list(map(int, b)) for b in cpu.begins],
+            "fmllr_gain": float(cpu.fmllr_gain),
+            "seconds_ladder": time.perf_counter() - t0}
+
+
+def _tri5_7d_phase(torch, dev, gpu, host_worker):
     """Phase 10, the reference's tri5_7d path: the GMM ladder on the card
-    (held against the port's CPU run), the 400-leaf +-1 tree from its
-    alignments, the committed trigram den with its wildcard term, the
-    blocked pair against its plain version on it (``_blocked_check``), and
-    20 flagship training steps on it.  Returns (the blocked kernels'
-    launches over the training steps, their ``_blocked_check`` fields)."""
+    (held against the port's CPU run, made by the host worker), the
+    400-leaf +-1 tree from its alignments, the committed trigram den with
+    its wildcard term, the blocked pair against its plain version on it
+    (``_blocked_check``), and 20 flagship training steps on it.  Returns
+    (the blocked kernels' launches over the training steps, their
+    ``_blocked_check`` fields)."""
     import itertools
 
     from tdnnf_nas_torch import convert
     from tdnnf_nas_torch.data import batch_iterator
-    from tdnnf_nas_torch.data.synthetic import (WordCorpusConfig,
-                                                make_word_corpus)
-    from tdnnf_nas_torch.gmm import GmmLadderConfig, MonoHmmConfig
-    from tdnnf_nas_torch.gmm.ladder import run_gmm_ladder
     from tdnnf_nas_torch.models import TdnnfModelConfig
     from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
     from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
@@ -1848,39 +1924,29 @@ def _tri5_7d_phase(torch, dev, gpu):
                                        make_train_step)
 
     t_phase = time.perf_counter()
-    cfg = WordCorpusConfig(**PM1_CORPUS)
-    utts, _, _, _, _, topo = make_word_corpus(cfg)[:6]
-    train = utts[PM1_TEST:]
-    phones = [u.phones for u in train]
-    speakers = [u.speaker for u in train]
-    n_phones = cfg.num_phones
+    train, phones, speakers, n_phones, topo = _tri5_7d_corpus()
 
     # ---- 10.1 the GMM ladder (e2e_flagship.py:149-155, SMOKE) ----
-    ladder_cfg = GmmLadderConfig(
-        mono=MonoHmmConfig(num_iters=8, max_mix=2, mix_up_iters=(4,)),
-        tri_leaves=120, tri_em_iters=6, splice_context=2, lda_dim=36,
-        lda_mllt_em_iters=5, sat_em_iters=4, train_subset=80)
-    feats = [u.feats for u in train]
-    t0 = time.perf_counter()
-    cpu = run_gmm_ladder(feats, phones, n_phones, ladder_cfg,
-                         speakers=speakers, device="cpu")
-    t_cpu = time.perf_counter() - t0
+    cpu = host_worker.take("tri5_7d_cpu_ladder", "phase 10's CPU ladder")
     tree, ladder, secs = bootstrap_stage(
-        train, phones, n_phones, ladder_cfg, PM1_LEAVES, tree_kind="pm1",
-        speakers=speakers, frame_subsampling_factor=3, device=dev)
-    n_ph = sum(len(b) for b in cpu.begins)
-    same = sum(int(x == y) for a, b in zip(ladder.begins, cpu.begins)
+        train, phones, n_phones, _tri5_7d_ladder_config(), PM1_LEAVES,
+        tree_kind="pm1", speakers=speakers, frame_subsampling_factor=3,
+        device=dev)
+    n_ph = sum(len(b) for b in cpu["begins"])
+    same = sum(int(x == y) for a, b in zip(ladder.begins, cpu["begins"])
                for x, y in zip(a, b))
-    n40 = sum(len(b) for b in cpu.begins[:40])
+    n40 = sum(len(b) for b in cpu["begins"][:40])
     same40 = sum(int(x == y) for a, b in zip(ladder.begins[:40],
-                                             cpu.begins[:40])
+                                             cpu["begins"][:40])
                  for x, y in zip(a, b))
+    feats = [u.feats for u in train]
     print(f"[tri5_7d gmm] ladder on the card {secs['gmm']:.1f} s (CPU "
-          f"{t_cpu:.1f} s), {len(train)} utts ({sum(len(f) for f in feats)} "
+          f"{cpu['seconds_ladder']:.1f} s in the host worker), "
+          f"{len(train)} utts ({sum(len(f) for f in feats)} "
           f"frames), subset 80: mono loglike per iteration "
           + " ".join(f"{v:.4f}" for v in ladder.mono_ll)
           + f"; fmllr_gain {ladder.fmllr_gain:.4f} (CPU "
-          f"{cpu.fmllr_gain:.4f}); phone begins equal to the CPU run's: "
+          f"{cpu['fmllr_gain']:.4f}); phone begins equal to the CPU run's: "
           f"{same}/{n_ph} ({100.0 * same / n_ph:.3f}%), first 40 utts "
           f"{same40}/{n40} ({gpu})", flush=True)
     _check(same >= 0.999 * n_ph and same40 >= 0.999 * n40,
@@ -1916,7 +1982,8 @@ def _tri5_7d_phase(torch, dev, gpu):
           flush=True)
 
     # ---- 10.4 20 flagship steps on the committed den ----
-    mc = TdnnfModelConfig(num_pdfs=tree.num_pdfs, feat_dim=cfg.feat_dim,
+    mc = TdnnfModelConfig(num_pdfs=tree.num_pdfs,
+                          feat_dim=PM1_CORPUS["feat_dim"],
                           ivector_dim=0)
     tc = TrainerConfig(
         objective=ChainObjectiveConfig(den_obs_bf16=True),
@@ -1973,30 +2040,53 @@ def _tri5_7d_phase(torch, dev, gpu):
 FLAGSHIP_BATCH, FLAGSHIP_CHUNK = 64, 50
 
 
-def _flagship_setup(dev):
-    """Phase 1, the flagship host setup (bench.py:113-157) through the
-    port's numpy host modules: (utts, phone_seqs, topo, tree, bundle,
-    model_cfg, chunks, iv_rng, host_batches, blocked den on ``dev``)."""
-    from tdnnf_nas_torch.data import (SyntheticCorpusConfig, batch_iterator,
+def _flagship_corpus():
+    """The flagship corpus (bench.py:113-120) from its seed: (utts,
+    phone_seqs, topo); phase 1 and the host worker each build it."""
+    from tdnnf_nas_torch.data import (SyntheticCorpusConfig,
                                       make_synthetic_corpus)
-    from tdnnf_nas_torch.graphs import (accumulate_triphone_stats,
-                                        build_clustered_triphone_tree)
-    from tdnnf_nas_torch.models import TdnnfModelConfig
-    from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
-    from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
 
-    t0 = time.perf_counter()
-    num_phones = 46
     corpus_cfg = SyntheticCorpusConfig(
-        num_utts=768, num_phones=num_phones, feat_dim=40, min_phones=10,
+        num_utts=768, num_phones=46, feat_dim=40, min_phones=10,
         max_phones=30, mean_dur=4.0, context_shift=1.0, seed=0)
     utts, phone_seqs, _, topo = make_synthetic_corpus(corpus_cfg)
+    return utts, phone_seqs, topo
+
+
+def _flagship_host_setup() -> dict:
+    """Phase 1's host set-up (bench.py:113-129) through the port's numpy
+    host modules, built by the host worker: the flagship corpus, the
+    6,034-pdf left-2 tree and ``prepare_data``'s 4-gram blocked den
+    ({"utts", "phone_seqs", "topo", "tree", "bundle"})."""
+    from tdnnf_nas_torch.graphs import (accumulate_triphone_stats,
+                                        build_clustered_triphone_tree)
+    from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
+
+    num_phones = 46
+    utts, phone_seqs, topo = _flagship_corpus()
     stats = accumulate_triphone_stats(
         [u.feats for u in utts], phone_seqs, [u.begins for u in utts],
-        num_phones, corpus_cfg.frame_subsampling_factor)
+        num_phones, 3)
     tree = build_clustered_triphone_tree(stats, num_leaves=6034 - num_phones)
     bundle = prepare_data(utts, phone_seqs, tree, topo, num_phones,
                           phone_lm_order=4, num_extra_lm_states=2000)
+    return {"utts": utts, "phone_seqs": phone_seqs, "topo": topo,
+            "tree": tree, "bundle": bundle}
+
+
+def _flagship_setup(dev, host_worker):
+    """Phase 1, the flagship set-up (bench.py:113-157) on the host
+    worker's corpus, tree and den (``_flagship_host_setup``): (utts,
+    phone_seqs, topo, tree, bundle, model_cfg, chunks, iv_rng,
+    host_batches, blocked den on ``dev``)."""
+    from tdnnf_nas_torch.data import batch_iterator
+    from tdnnf_nas_torch.models import TdnnfModelConfig
+    from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
+
+    t0 = time.perf_counter()
+    built = host_worker.take("flagship", "phase 1's corpus, tree and den")
+    utts, phone_seqs, topo, tree, bundle = (
+        built[k] for k in ("utts", "phone_seqs", "topo", "tree", "bundle"))
     host_den = bundle.den_arrays
     model_cfg = TdnnfModelConfig(num_pdfs=tree.num_pdfs)
     chunks = bundle.egs(model_cfg, chunk_width=FLAGSHIP_CHUNK,
@@ -2011,7 +2101,9 @@ def _flagship_setup(dev):
                                      ).astype(np.float32)
         host_batches.append(b)
     c, nsrc, ndp = host_den.shape
-    print(f"[setup] {time.perf_counter() - t0:.1f} s: pdfs={tree.num_pdfs} "
+    print(f"[setup] {time.perf_counter() - t0:.1f} s here, "
+          f"{built['seconds']:.1f} s in the host worker: "
+          f"pdfs={tree.num_pdfs} "
           f"den_states={host_den.num_states} w_blocks=[{c},{nsrc},{ndp}] "
           f"R={host_den.enter_pad} chunks={len(chunks)} "
           f"batches={len(host_batches)} feats="
@@ -2687,35 +2779,22 @@ def _factored_scores(torch, obs, g, leaky):
     return z.detach(), grad
 
 
-def _factored_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng,
-                    dense_bundle):
-    """Phase 12, the bench-scale +-1 path through the factored den: the
-    +-1 tree on phase 1's corpus, ``prepare_data``'s fallback when
-    ``to_blocked`` refuses the committed 4-gram den, the factored scan on
-    the card against the CPU (float32, B = 2, T = 50), 10 bf16 flagship
-    steps through it; then ``forward_score_sparse`` on phase 5's biphone
-    den against the dense kernels, and the native supervision builder
-    with the dense numerator on phase 1's utterances.  Returns the host
-    FactoredDenGraph."""
+def _pm1_factored_setup(utts, phone_seqs, topo) -> dict:
+    """Phase 12's host set-up, built by the host worker: the 6,034-pdf +-1
+    tree on the flagship corpus and ``prepare_data`` (4-gram phone LM,
+    2,000 extra states), whose ``to_blocked`` refuses the committed den
+    and which falls back to its factored export.  Returns {"tree",
+    "bundle", "secs": each host stage's seconds, "refusal": the messages
+    ``to_blocked`` raised}."""
     from unittest import mock
 
-    from tdnnf_nas_torch import convert
-    from tdnnf_nas_torch.data import batch_iterator
     from tdnnf_nas_torch.graphs import (accumulate_cross_triphone_stats,
                                         build_clustered_cross_triphone_tree)
     from tdnnf_nas_torch.graphs import den_graph as host_den
-    from tdnnf_nas_torch.models import TdnnfModelConfig
-    from tdnnf_nas_torch.ops.fwdbwd import FactoredDenGraph
     from tdnnf_nas_torch.recipes import chain_recipes
-    from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
-                                       TrainerConfig, init_train_state,
-                                       make_train_step)
 
-    t_phase = time.perf_counter()
     secs, refusal = {}, []
     num_phones = 46
-
-    # ---- 12.1 the +-1 tree and prepare_data's factored fallback ----
     t0 = time.perf_counter()
     stats = accumulate_cross_triphone_stats(
         [u.feats for u in utts], phone_seqs, [u.begins for u in utts],
@@ -2748,6 +2827,36 @@ def _factored_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng,
             utts, phone_seqs, tree, topo, num_phones, phone_lm_order=4,
             num_extra_lm_states=2000)
         secs["prepare_data"] = time.perf_counter() - t0
+    return {"tree": tree, "bundle": bundle, "secs": secs,
+            "refusal": refusal}
+
+
+def _factored_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng,
+                    dense_bundle, host_worker):
+    """Phase 12, the bench-scale +-1 path through the factored den: the
+    host worker's +-1 tree on phase 1's corpus (the worker built both)
+    and ``prepare_data``'s fallback when ``to_blocked`` refuses
+    the committed 4-gram den, the factored scan on the card against the
+    CPU (float32, B = 2, T = 50), 10 bf16 flagship steps through it; then
+    ``forward_score_sparse`` on phase 5's biphone den against the dense
+    kernels, and the native supervision builder with the dense numerator
+    on phase 1's utterances.  Returns the host FactoredDenGraph."""
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.data import batch_iterator
+    from tdnnf_nas_torch.graphs import den_graph as host_den
+    from tdnnf_nas_torch.models import TdnnfModelConfig
+    from tdnnf_nas_torch.ops.fwdbwd import FactoredDenGraph
+    from tdnnf_nas_torch.train import (ChainObjectiveConfig, OptimizerConfig,
+                                       TrainerConfig, init_train_state,
+                                       make_train_step)
+
+    t_phase = time.perf_counter()
+
+    # ---- 12.1 the +-1 tree and prepare_data's factored fallback, built
+    # by the host worker on the flagship corpus ----
+    built = host_worker.take("pm1_factored", "phase 12's +-1 tree and den")
+    tree, bundle = built["tree"], built["bundle"]
+    secs, refusal = built["secs"], built["refusal"]
     host = bundle.den_arrays
     fsa = bundle.den_fsa
     _check(isinstance(host, host_den.FactoredDenGraph),
@@ -2769,7 +2878,8 @@ def _factored_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng,
           f"{float(indeg.mean()):.1f}, {int((indeg > 100).sum())} states over "
           f"100; scan form {g.form!r} (largest den array {largest:,} "
           f"entries, S*K = {s_k:,}); den on the card {g.nbytes / 2**20:.1f} MiB; host "
-          f"seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          f"seconds in the worker: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
           flush=True)
     _check(tree.num_pdfs == 6034, "6,034 +-1 pdfs")
     _check(fsa.committed and host.trans_pos is None and g.form == "arcs"
@@ -3502,8 +3612,12 @@ E2E_REFERENCE = {"wer_first_pass_tg": 7.44, "wer_4gram_rescore": 7.2,
 # 120 and the A/B's 60 steps; stage 9's pretrain 80, cv-updates 60 and
 # children 100 steps) to leave phase 15 its room in the script's time
 # limit: with 20 test utterances and stage 9 cut alone the script took
-# 1,105.0 s of its 1,200 s, and with 10 test utterances 999.6-1,189.7 s
-E2E_CUT = dict(n_test=10, rnnlm_steps=50, noiv_steps=40, ab_steps=30,
+# 1,105.0 s of its 1,200 s, and with 10 test utterances 999.6-1,189.7 s;
+# with phase 16 added and 10 test utterances, 836.4-853.9 s on a fast host,
+# ~1,150 s projected on a host as slow as the 1,189.7 s run's: 4 test
+# utterances (LHUC's two passes over their speakers and the n-best lists
+# were ~70 s of phase 14's 200 s at 10)
+E2E_CUT = dict(n_test=4, rnnlm_steps=50, noiv_steps=40, ab_steps=30,
                pretrain_steps=40, cv_steps=30, child_steps=25)
 
 
@@ -3570,8 +3684,9 @@ def _e2e_phase(torch, dev, gpu):
     each blocked kernel per training, supernet, cv-update, child and LHUC
     step and of the forward per valid batch, the table's rows; then one
     float32 step of the run's model and trainer on its den through the
-    kernels against the plain scan.  Returns the blocked launches of the
-    run."""
+    kernels against the plain scan.  Returns (the blocked launches of the
+    run, its set-up, the content of its ``e2e_flagship.json``); phase 16
+    runs on that set-up."""
     import tempfile
 
     from tdnnf_nas_torch.graphs.den_graph import BlockedDenGraph
@@ -3689,7 +3804,7 @@ def _e2e_phase(torch, dev, gpu):
         e2e.model_config(setup.tree, setup.cfg, dtype="float32"),
         e2e.trainer_config(sizes.train_steps), 50, 64, "e2e")
     print(f"[e2e phase] {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return launches, setup, e2e_out
 
 
 # ---- phase 15: the search experiments ----
@@ -3706,7 +3821,7 @@ def _e2e_phase(torch, dev, gpu):
 SANITY_SMOKE_STEPS = (40, 100, 30)
 TABLE_SMOKE_CUT = dict(pretrain_steps=30, cv_steps=40, child_steps=30,
                        n_decode=10)
-WER_SMOKE_SIZES = dict(n_test=8, num_utts=160, train_steps=40,
+WER_SMOKE_SIZES = dict(n_test=4, num_utts=160, train_steps=40,
                        rnnlm_steps=30, pretrain_steps=20, cv_steps=20,
                        child_steps=20)
 # the reference's files, whose keys phase 15's files must hold; sil's
@@ -3936,8 +4051,448 @@ def _search_experiments_phase(torch, dev, gpu):
     return dense_launches, blocked_launches, blocked
 
 
-def _smoke(torch, phase) -> int:
-    """Phases 0-15, then the kernels line and the result line."""
+# ---- the host worker: phase 12's and phase 16's host set-ups ----
+
+# The worker's BLAS, OpenMP and torch threads: the main process's
+# launch-bound phases keep the other cores
+HOST_WORKER_THREADS = 2
+# The longest a phase waits for one of the worker's files: its longest
+# set-up, phase 12's, took 114.6-131.6 s on the card's host
+HOST_WORKER_WAIT_S = 400.0
+
+
+def _host_worker_main(work: str) -> int:
+    """The host worker, ``python3 chip_smoke.py --host-worker DIR``,
+    started before phase 0 with no card visible (``CUDA_VISIBLE_DEVICES``
+    empty) and its threads capped.  It builds on the CPU, in the order
+    the phases need them: phase 1's set-up (the flagship corpus from its
+    seed, the left-2 tree and the blocked den), phase 10's CPU run of the
+    GMM ladder, phase 12's set-up (the +-1 tree and ``prepare_data``'s
+    factored den, on phase 1's corpus) and phase 16's
+    (``context_compare``'s and ``wpd_compare``'s corpora, trees, dens and
+    HCLGs at their cut sizes), and writes each as DIR/<name>.pkl, through
+    a temporary name and a rename, with its seconds."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tdnnf_nas_torch.tools import context_compare as cc
+    from tdnnf_nas_torch.tools import wpd_compare as wpd
+
+    torch.set_num_threads(HOST_WORKER_THREADS)
+    _check(not torch.cuda.is_available(), "the host worker sees no card")
+
+    def put(name: str, payload: dict, t0: float) -> None:
+        payload["seconds"] = time.perf_counter() - t0
+        tmp = os.path.join(work, f".{name}.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, os.path.join(work, f"{name}.pkl"))
+        print(f"[host worker] {name}: {payload['seconds']:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    flagship = _flagship_host_setup()
+    put("flagship", flagship, t0)
+    t0 = time.perf_counter()
+    put("tri5_7d_cpu_ladder", _tri5_7d_cpu_ladder(), t0)
+    t0 = time.perf_counter()
+    utts, phone_seqs = flagship["utts"], flagship["phone_seqs"]
+    put("pm1_factored", _pm1_factored_setup(utts, phone_seqs,
+                                            flagship["topo"]), t0)
+    del flagship, utts, phone_seqs
+    t0 = time.perf_counter()
+    put("context_compare", {"world": cc.build_world(
+        CC_SMOKE_MODE, _cc_sizes(cc))}, t0)
+    t0 = time.perf_counter()
+    put("wpd_compare", {"world": wpd.build_world(_wpd_sizes(wpd))}, t0)
+    return 0
+
+
+class _HostWorker:
+    """The host worker process and the files it hands over.  ``take(name,
+    what)`` waits for DIR/<name>.pkl at the start of the phase that needs
+    it, prints the wait and returns the pickle; if the worker exits first,
+    or the file is not there within ``HOST_WORKER_WAIT_S``, the phase
+    fails naming it, with the end of the worker's log.  ``finish()``
+    checks its exit code after the last file; ``close()`` stops it and
+    removes DIR."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_host_")
+        self.log_path = os.path.join(self.dir, "worker.log")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                  "OPENBLAS_NUM_THREADS"):
+            env[k] = str(HOST_WORKER_THREADS)
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--host-worker",
+                 self.dir], stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=REPO)
+        self.t0 = time.perf_counter()
+        print(f"[host worker] started: pid {self.proc.pid}, no card, "
+              f"{HOST_WORKER_THREADS} threads", flush=True)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def take(self, name: str, what: str):
+        import pickle
+
+        path = os.path.join(self.dir, f"{name}.pkl")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            rc = self.proc.poll()
+            wait = time.perf_counter() - t0
+            if os.path.exists(path):
+                break
+            if rc is not None or wait > HOST_WORKER_WAIT_S:
+                tail = "\n".join(self.log().splitlines()[-30:])
+                why = (f"exited with code {rc}" if rc is not None else
+                       f"was still running after {wait:.0f} s")
+                raise RuntimeError(
+                    f"the host worker {why} before writing {name}.pkl "
+                    f"({what}); its log ends:\n{tail}")
+            time.sleep(0.2)
+        wait = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            out = pickle.load(f)
+        print(f"[host worker] {what}: waited {wait:.1f} s (built in "
+              f"{out['seconds']:.1f} s; {time.perf_counter() - self.t0:.1f} "
+              "s since the worker started)", flush=True)
+        return out
+
+    def finish(self) -> None:
+        rc = self.proc.wait(timeout=120)
+        _check(rc == 0, f"the host worker exited with code {rc}")
+        print("[host worker] log:\n" + self.log().rstrip(), flush=True)
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+# ---- phase 16: the comparison drivers ----
+
+# Phase 16's cuts, each printed beside the reference's figure, to fit the
+# script's time limit: (a) the no-i-vector model's steps (the reference's
+# 1,000) and (b) the AM's, the RNNLM's steps and the extra text (1,600,
+# 48,000, 700,000), each on the first COMPARE_TEST_UTTS of phase 14's
+# test utterances (the reference's 200; at 10, (a) took 61.7 s, 600 LHUC
+# steps at ~70 ms, and at 5 (a) and (b) 69.0 s, so 2 keep the script
+# clear of its limit on a slow host); (c)
+# context_compare's symhard run, utterances, test utterances and steps a
+# contender (720, 60, 800); (d) wpd_compare's (360, 50, 500); (e)
+# wer_synthetic at the reference's sizes: after 40 steps its model's
+# exact 10-best search took 3-10 s an utterance on the CPU, after 300
+# 0.1 s
+COMPARE_TEST_UTTS = 2
+LHUC_SMOKE = dict(noiv_steps=40)
+FIGHT_SMOKE = dict(am_steps=40, rnnlm_steps=30, extra_text=2000)
+CC_SMOKE_MODE = "symhard"
+CC_SMOKE = dict(num_utts=200, n_test=20, steps=30)
+WPD_SMOKE = dict(num_utts=150, n_test=20, steps=30)
+COMPARE_DOCS = {"lhuc": "lhuc_noiv_reg.json", "fight": "rnnlm_rescore.json",
+                "cc": "context_compare_symhard.json",
+                "wpd": "wpd_compare.json", "ws": "wer_synthetic.json"}
+
+
+def _cc_sizes(cc):
+    return dataclasses.replace(cc.CompareSizes.full(), **CC_SMOKE)
+
+
+def _wpd_sizes(wpd):
+    return dataclasses.replace(wpd.WpdSizes.full(), **WPD_SMOKE)
+
+
+def _print_cut(what: str, cut: dict, full: dict) -> None:
+    print(f"[{what}] cut from the reference's: " + ", ".join(
+        f"{k} {v} (reference {full[k]})" for k, v in cut.items()),
+        flush=True)
+
+
+def _hold_file(got: dict, ref: dict, what: str) -> None:
+    """A comparison driver's file at any size: the reference file's keys
+    at every level (table rows, variants, sweeps), every objf finite,
+    every WER finite and >= 0."""
+    def keys(g, r, path):
+        _check(set(g) == set(r), f"{what}: {'/'.join(path) or 'the file'} "
+               "holds the reference's keys")
+        for k, v in r.items():
+            if isinstance(v, dict):
+                keys(g[k], v, path + (k,))
+
+    keys(got, ref, ())
+    leaves = list(_walk(got))
+    objf = [v for p, v in leaves if "objf" in p[-1]]
+    wers = [v for p, v in leaves
+            if p[-1] == "wer" or p[-1].startswith("wer_")
+            or p[-1].endswith("_wer") or p[0].startswith("sweep_")]
+    _check(all(np.isfinite(v) for v in objf), f"{what}: every objf finite")
+    _check(wers and all(np.isfinite(v) and v >= 0 for v in wers),
+           f"{what}: every WER finite and >= 0")
+
+
+def _compare_dens(world, what: str):
+    """Every contender's den is blocked, with the wildcard term exactly
+    for ``pm1``."""
+    from tdnnf_nas_torch.graphs.den_graph import BlockedDenGraph
+
+    for name, host in world.hosts.items():
+        den = host.bundle.den_arrays
+        _check(isinstance(den, BlockedDenGraph)
+               and (den.bcast_sel is not None) == (name == "pm1"),
+               f"{what}: {name}'s den is blocked, with the wildcard term "
+               "exactly for pm1")
+
+
+def _comparison_drivers_phase(torch, dev, gpu, host_worker, e2e_setup,
+                              e2e_file: dict):
+    """Phase 16: the five comparison drivers' ``main`` in this process,
+    each into a fresh temporary directory.  (a) ``lhuc_regularized`` and
+    (b) ``rnnlm_fair_fight`` on phase 14's set-up, its first
+    ``COMPARE_TEST_UTTS`` test utterances (no set-up rebuilt; (a)
+    patches a copy of phase 14's ``e2e_flagship.json``); (c)
+    ``context_compare --mode symhard`` and (d) ``wpd_compare`` on the
+    host worker's worlds, then the blocked pair against its plain
+    version on (c)'s ``pm1`` den (wildcard term) at B = 48, T = 40; (e)
+    ``wer_synthetic``, then the dense pair against its plain version on
+    its den at B = 16, T = 20.  Each run is held to ``_hold_file``, its
+    arithmetic, its dens' forms and its kernel launches (once per
+    training and LHUC step, the forward once more per valid batch);
+    (c) and (e) each take one float32 step through the kernels against
+    the plain scan.  Returns (blocked launches, dense launches, the
+    blocked pair's fields at B = 48, T = 40, the dense pair's at B = 16,
+    T = 20)."""
+    import tempfile
+
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
+    from tdnnf_nas_torch.ops.fwdbwd import DenGraphArrays
+    from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
+    from tdnnf_nas_torch.tools import context_compare as cc
+    from tdnnf_nas_torch.tools import lhuc_regularized as lr
+    from tdnnf_nas_torch.tools import rnnlm_fair_fight as rf
+    from tdnnf_nas_torch.tools import wer_synthetic as ws
+    from tdnnf_nas_torch.tools import wpd_compare as wpd
+    from tdnnf_nas_torch.train import ChainObjectiveConfig, TrainerConfig
+
+    docs = {k: json.load(open(os.path.join(REPO, "docs", v)))
+            for k, v in COMPARE_DOCS.items()}
+    torch.cuda.empty_cache()
+    tc32 = TrainerConfig(objective=ChainObjectiveConfig())
+    secs = {}
+    n_test = COMPARE_TEST_UTTS
+    print(f"[lhuc, fight] on the first {n_test} of phase 14's "
+          f"{len(e2e_setup.test)} test utterances (the reference's "
+          f"{lr.E2eSizes.full().n_test})", flush=True)
+    e2e_setup = dataclasses.replace(e2e_setup, test=e2e_setup.test[:n_test],
+                                    iv_test=e2e_setup.iv_test[:n_test])
+
+    def run(what, fn):
+        """fn(out) in a fresh directory, with its blocked and dense
+        launches and seconds: (result, its file, the other files it left
+        there, blocked, dense)."""
+        t0 = time.perf_counter()
+        b0, d0 = _blocked_launches(bdc), _dense_launches(ddc)
+        with tempfile.TemporaryDirectory() as out:
+            res, name = fn(out)
+            with open(os.path.join(out, name)) as f:
+                got = json.load(f)
+            extra = {n: json.load(open(os.path.join(out, n)))
+                     for n in os.listdir(out) if n != name}
+        torch.cuda.synchronize()
+        blocked = tuple(b - a for a, b in zip(b0, _blocked_launches(bdc)))
+        dense = tuple(b - a for a, b in zip(d0, _dense_launches(ddc)))
+        secs[what] = time.perf_counter() - t0
+        print(f"[{what}] {secs[what]:.1f} s ({gpu}); stage seconds "
+              + ", ".join(f"{k} {v:.1f}"
+                          for k, v in res.report.seconds.items()),
+              flush=True)
+        return res, got, extra, blocked, dense
+
+    def launches_per_step(what, got, want):
+        _check(got == want, f"{what}: each den kernel once per step, the "
+               "forward once more per valid batch (launches "
+               f"{got}, steps and valid batches give {want})")
+
+    # ---- (a) the LHUC sweep on phase 14's set-up ----
+    _print_cut("lhuc", LHUC_SMOKE, dataclasses.asdict(lr.LhucSizes()))
+
+    def lhuc(out):
+        with open(os.path.join(out, lr.E2E_FILE), "w") as f:
+            json.dump(e2e_file, f)
+        return lr.main(["--out", out], device=dev,
+                       sizes=lr.LhucSizes(**LHUC_SMOKE),
+                       setup=e2e_setup), lr.FILE
+
+    res, got, extra, blocked, dense = run("lhuc", lhuc)
+    _hold_file(got, docs["lhuc"], "lhuc")
+    rows = got["variants"]
+    _check(got["best_variant"] == min(
+        rows, key=lambda k: (rows[k]["wer_after"], list(rows).index(k))),
+        "lhuc: best_variant is the first of least wer_after")
+    n_lhuc = sum(r["num_steps"] * r["speakers"] for r in rows.values())
+    _check(res.report.lhuc_steps == n_lhuc and res.report.steps == {
+        "noiv": LHUC_SMOKE["noiv_steps"]},
+        "lhuc: every no-iv step and each speaker's LHUC steps taken")
+    n = res.report.steps["noiv"] + res.report.lhuc_steps
+    launches_per_step("lhuc", blocked, (n, n))
+    patched = extra[lr.E2E_FILE]["lhuc_noiv"]
+    _check(res.patched and patched["regularization"] == got["best_variant"]
+           and patched["wer_after"] == rows[got["best_variant"]]["wer_after"],
+           "lhuc: e2e_flagship.json's lhuc_noiv row is the best variant's")
+    ref = docs["lhuc"]
+    print(f"[lhuc] unadapted {got['wer_unadapted_full']} "
+          f"({ref['wer_unadapted_full']}); after: " + ", ".join(
+              f"{k} {v['wer_after']} ({ref['variants'][k]['wer_after']})"
+              for k, v in rows.items())
+          + f"; best {got['best_variant']} ({ref['best_variant']}); "
+          f"{rows['unregularized_24']['speakers']} speakers; reference's "
+          "full-scale figures in brackets", flush=True)
+    blocked_total = blocked
+
+    # ---- (b) the RNNLM fair fight on phase 14's set-up ----
+    _print_cut("fight", FIGHT_SMOKE, dict(
+        dataclasses.asdict(rf.FairFightSizes()), rnnlm_steps=rf.RNNLM_STEPS,
+        extra_text=rf.EXTRA_TEXT))
+    res, got, _, blocked, dense = run("fight", lambda out: (rf.main(
+        ["--out", out, "--rnnlm-steps", str(FIGHT_SMOKE["rnnlm_steps"]),
+         "--extra-text", str(FIGHT_SMOKE["extra_text"])], device=dev,
+        sizes=rf.FairFightSizes(am_steps=FIGHT_SMOKE["am_steps"]),
+        setup=e2e_setup), rf.FILE))
+    _hold_file(got, docs["fight"], "fight")
+    dev_half = got["sweep_dev_half"]
+    choice = str(got["interp_weight_dev_choice"])
+    _check(list(dev_half) == [str(w) for w in rf.INTERP_WEIGHTS]
+           and dev_half[choice] == min(dev_half.values())
+           and got["wer_rnnlm_eval_at_dev_weight"]
+           == got["sweep_eval_half"][choice]
+           and got["lattice_rescore"]["interp_weight"]
+           == got["interp_weight_dev_choice"],
+           "fight: the weight is the dev half's least WER, its eval figure "
+           "and the lattice rescoring's")
+    _check(got["lattice_rescore"]["num_lattices"] == n_test
+           and got["lm_text"]["fisher_analogue_extra"]
+           == FIGHT_SMOKE["extra_text"]
+           and got["rnnlm"]["steps"] == FIGHT_SMOKE["rnnlm_steps"]
+           and res.report.steps == {"am": FIGHT_SMOKE["am_steps"]},
+           "fight: its lattices, extra text, RNNLM and AM steps")
+    launches_per_step("fight", blocked, (FIGHT_SMOKE["am_steps"],) * 2)
+    ref = docs["fight"]
+    print("[fight] " + ", ".join(
+        f"{k} {got[k]} ({ref[k]})" for k in (
+            "wer_first_pass_tg", "wer_4gram_small_nbest", "wer_4gram_nbest",
+            "oracle_nbest_wer", "interp_weight_dev_choice",
+            "wer_rnnlm_eval_at_dev_weight"))
+          + f"; ppl held-out {got['rnnlm']['ppl_heldout_text']} "
+          f"({ref['rnnlm']['ppl_heldout_text']}); lattice rescoring "
+          f"{got['lattice_rescore']['seconds_per_lattice']} s a lattice "
+          f"({ref['lattice_rescore']['seconds_per_lattice']} on the TPU "
+          f"host); lattice_nbest over {n_test} lattices "
+          f"{res.nbest_seconds:.1f} s; reference's full-scale figures in "
+          "brackets", flush=True)
+    blocked_total = tuple(a + b for a, b in zip(blocked_total, blocked))
+
+    # ---- (c) the context comparison, symhard, on the worker's world ----
+    world = host_worker.take("context_compare", "phase 16's context_compare "
+                             "world")["world"]
+    sizes = _cc_sizes(cc)
+    _print_cut("context", CC_SMOKE,
+               dataclasses.asdict(cc.CompareSizes.full()))
+    _compare_dens(world, "context")
+    res, got, _, blocked, dense = run("context", lambda out: (cc.main(
+        ["--mode", CC_SMOKE_MODE, "--out", out], device=dev, sizes=sizes,
+        world=world), cc.FILES[CC_SMOKE_MODE]))
+    _hold_file(got, docs["cc"], "context")
+    _check(res.report.steps == {n: sizes.steps for n in cc.CONTENDERS}
+           and res.report.valid_batches == 6 * len(cc.CONTENDERS),
+           "context: every contender's steps and 6 valid batches")
+    n = sum(res.report.steps.values())
+    launches_per_step("context", blocked, (n + res.report.valid_batches, n))
+    ref = docs["cc"]["table"]
+    print("[context] " + "; ".join(
+        f"{k}: " + ", ".join(f"{f} {v[f]} ({ref[k][f]})" for f in (
+            "pdfs", "cluster_ll_per_frame", "den_states", "den_arcs",
+            "hclg_states", "dev_objf", "wer"))
+        for k, v in got["table"].items())
+          + "; reference's full-scale figures in brackets", flush=True)
+    blocked_total = tuple(a + b for a, b in zip(blocked_total, blocked))
+    pm1 = world.hosts["pm1"]
+    ctx = _blocked_check(torch, dev, gpu, den_on_device(pm1.bundle, dev),
+                         pm1.tree.num_pdfs, 48, t=40)
+    _kernel_vs_plain_step(torch, dev, pm1.bundle, cc.model_config(
+        pm1.tree.num_pdfs).replace(compute_dtype="float32"), tc32, 40, 48,
+        "context pm1")
+    del world, pm1
+
+    # ---- (d) word-position-marked phones, on the worker's world ----
+    world = host_worker.take("wpd_compare", "phase 16's wpd_compare "
+                             "world")["world"]
+    host_worker.finish()
+    sizes = _wpd_sizes(wpd)
+    _print_cut("wpd", WPD_SMOKE, dataclasses.asdict(wpd.WpdSizes.full()))
+    _compare_dens(world, "wpd")
+    res, got, _, blocked, dense = run("wpd", lambda out: (wpd.main(
+        ["--out", out], device=dev, sizes=sizes, world=world), wpd.FILE))
+    _hold_file(got, docs["wpd"], "wpd")
+    _check(got["corpus"] == docs["wpd"]["corpus"],
+           "wpd: the corpus string verbatim")
+    _check(got["table"]["left1_wpd"]["pdfs"] > 0
+           and world.hosts["left1_wpd"].bundle.num_phones
+           == 4 * world.hosts["left1"].bundle.num_phones,
+           "wpd: the marked contender's phones are the 4 marks of each")
+    n = sum(res.report.steps.values())
+    _check(res.report.valid_batches == 4 * len(wpd.CONTENDERS),
+           "wpd: 4 valid batches a contender")
+    launches_per_step("wpd", blocked, (n + res.report.valid_batches, n))
+    ref = docs["wpd"]["table"]
+    print("[wpd] " + "; ".join(
+        f"{k}: " + ", ".join(f"{f} {v[f]} ({ref[k][f]})" for f in (
+            "pdfs", "den_states", "dev_objf", "wer"))
+        for k, v in got["table"].items())
+          + "; reference's full-scale figures in brackets", flush=True)
+    blocked_total = tuple(a + b for a, b in zip(blocked_total, blocked))
+    del world
+
+    # ---- (e) the WER demo: the dense den ----
+    print("[ws] at the reference's sizes: 160 utterances, 300 steps, 300 "
+          "RNNLM steps", flush=True)
+    res, got, _, blocked, dense = run("ws", lambda out: (ws.main(
+        ["--out", out], device=dev), ws.FILE))
+    _hold_file(got, docs["ws"], "ws")
+    bundle = res.bundle
+    _check(isinstance(bundle.den_arrays, DenGraphArrays)
+           and bundle.den_fsa is None, "ws: the dense den")
+    _check(got["num_utts"] > 0 and res.report.steps == {"train": 300},
+           "ws: 300 steps and a scored dev set")
+    _check(blocked == (0, 0), "ws: no blocked launch")
+    launches_per_step("ws", dense, (300, 300))
+    ref = docs["ws"]
+    print("[ws] " + ", ".join(f"{k} {got[k]:.4g} ({ref[k]:.4g})"
+                              for k in ref)
+          + "; reference's figures in brackets", flush=True)
+    dense_total = dense
+    wsd = _dense_check(torch, dev, gpu, den_on_device(bundle, dev),
+                       res.model_cfg.num_pdfs, ws.BATCH, ws.CHUNK)
+    _kernel_vs_plain_step(torch, dev, bundle, res.model_cfg.replace(
+        compute_dtype="float32"), tc32, ws.CHUNK, ws.BATCH, "ws")
+    print("[phase 16] " + ", ".join(f"{k} {v:.1f} s"
+                                    for k, v in secs.items()), flush=True)
+    return blocked_total, dense_total, ctx, wsd
+
+
+def _smoke(torch, phase, host_worker) -> int:
+    """Phases 0-16, then the kernels line and the result line;
+    ``host_worker`` builds phase 12's and phase 16's host set-ups."""
     sys.path.insert(0, REPO)
     from tdnnf_nas_torch import convert
     from tdnnf_nas_torch.data import native
@@ -3959,13 +4514,20 @@ def _smoke(torch, phase) -> int:
     with phase(0, "build"):
         # ---- 0. build: the kernels (nvcc), then the decoders, the loader
         # copy and the supervision builder (g++) ----
+        # nvcc (one process per source) and the three g++ builds, all at
+        # once
+        from concurrent.futures import ThreadPoolExecutor
+
         t0 = time.perf_counter()
-        sos = cuda_build.build()
+        with ThreadPoolExecutor(4) as pool:
+            builds = [pool.submit(f) for f in (
+                cuda_build.build, native.get_decoder_lib, native.get_lib,
+                native.get_builder_lib)]
+            sos = builds[0].result()
+            for b in builds[1:]:
+                b.result()
         bdc._library()
         ddc._library()
-        native.get_decoder_lib()
-        native.get_lib()
-        native.get_builder_lib()
         builder = native.library_path(native.BUILDER_SOURCES, "egs_builder",
                                       native.BUILDER_FLAGS)
         decoders = native.library_path(native.DECODER_SOURCES, "decoders")
@@ -3979,7 +4541,7 @@ def _smoke(torch, phase) -> int:
         # ---- 1. flagship host setup (bench.py:113-157) ----
         batch_size, chunk_width = FLAGSHIP_BATCH, FLAGSHIP_CHUNK
         (utts, phone_seqs, topo, tree, bundle, model_cfg, chunks, iv_rng,
-         host_batches, g) = _flagship_setup(dev)
+         host_batches, g) = _flagship_setup(dev, host_worker)
         batches = [convert.batch_to_torch(b, dev) for b in host_batches]
 
     with phase(2, "blocked kernels"):
@@ -4117,7 +4679,7 @@ def _smoke(torch, phase) -> int:
 
     with phase(10, "tri5_7d"):
         # ---- 10. the tri5_7d path: GMM ladder, +-1 tree, committed den ----
-        pm1_launches, pm1 = _tri5_7d_phase(torch, dev, gpu)
+        pm1_launches, pm1 = _tri5_7d_phase(torch, dev, gpu, host_worker)
 
     with phase(11, "trainers"):
         # ---- 11. front end, optimizer kinds, Bayes/GP and CNN-TDNN-F ----
@@ -4131,7 +4693,7 @@ def _smoke(torch, phase) -> int:
     with phase(12, "factored den"):
         # ---- 12. the bench-scale +-1 den through the factored scan ----
         _factored_phase(torch, dev, gpu, utts, phone_seqs, topo, iv_rng,
-                        dense_bundle)
+                        dense_bundle, host_worker)
         torch.cuda.empty_cache()
 
     with phase(13, "data parallel"):
@@ -4141,12 +4703,18 @@ def _smoke(torch, phase) -> int:
 
     # ---- 14. the whole flagship run, stages 1-9 ----
     with phase(14, "e2e flagship"):
-        e2e_launches = _e2e_phase(torch, dev, gpu)
+        e2e_launches, e2e_setup, e2e_file = _e2e_phase(torch, dev, gpu)
 
     # ---- 15. the search experiments: sanity, planted table, WER ----
     with phase(15, "search experiments"):
         search_dense, search_blocked, b48 = _search_experiments_phase(
             torch, dev, gpu)
+
+    # ---- 16. the comparison drivers ----
+    with phase(16, "comparison drivers"):
+        compare_blocked, compare_dense, ctx, wsd = _comparison_drivers_phase(
+            torch, dev, gpu, host_worker, e2e_setup, e2e_file)
+        del e2e_setup
 
     for i, k in enumerate(("fwd", "bwd")):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
@@ -4155,15 +4723,21 @@ def _smoke(torch, phase) -> int:
               f"{lhuc_launches[k]}, +-1 steps {pm1_launches[k]}, phase 11 "
               f"steps {trainer_launches[k]}, data-parallel phase "
               f"{dp_launches[k]}, e2e run {e2e_launches[k]}, search "
-              f"experiments {search_blocked[i]}", flush=True)
+              f"experiments {search_blocked[i]}, comparison drivers "
+              f"{compare_blocked[i]}", flush=True)
         launches[k] += (loader_launches[k] + decode_launches[k]
                         + lhuc_launches[k] + pm1_launches[k]
                         + trainer_launches[k] + dp_launches[k]
-                        + e2e_launches[k] + search_blocked[i])
+                        + e2e_launches[k] + search_blocked[i]
+                        + compare_blocked[i])
     for i, row in enumerate(dense):
+        k = ("fwd", "bwd")[i]
         print(f"[launches] {row['name']}: phases 5-6 {row['launches']}, "
-              f"search experiments {search_dense[i]}", flush=True)
-        row["launches"] += search_dense[i]
+              f"search experiments {search_dense[i]}, comparison drivers "
+              f"{compare_dense[i]}", flush=True)
+        row["launches"] += search_dense[i] + compare_dense[i]
+        row["max_abs_err"] = max(row["max_abs_err"], wsd[k]["max_abs_err"])
+        row.update({f"{key}_ws": v for key, v in wsd[k].items()})
 
     kernels = [
         {"name": f"blocked_den_{k}", "route": "cuda",
@@ -4171,10 +4745,12 @@ def _smoke(torch, phase) -> int:
          "replaces": f"{_TPU_KERNELS}:{line}", "launches": launches[k],
          **blk[k],
          "max_abs_err": max(blk[k]["max_abs_err"], b16[k]["max_abs_err"],
-                            pm1[k]["max_abs_err"], b48[k]["max_abs_err"]),
+                            pm1[k]["max_abs_err"], b48[k]["max_abs_err"],
+                            ctx[k]["max_abs_err"]),
          **{f"{key}_b16": v for key, v in b16[k].items()},
          **{f"{key}_pm1": v for key, v in pm1[k].items()},
-         **{f"{key}_b48": v for key, v in b48[k].items()}}
+         **{f"{key}_b48": v for key, v in b48[k].items()},
+         **{f"{key}_ctx": v for key, v in ctx[k].items()}}
         for k, line in (("fwd", 282), ("bwd", 343))
     ] + dense
     print(gpu)
@@ -4211,17 +4787,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     phase = _Phases()
+    host_worker = _HostWorker()
     try:
-        return _smoke(torch, phase)
+        return _smoke(torch, phase, host_worker)
     except BaseException as e:
         # the failing phase by name, then the traceback, on stdout
         print(f"{phase.current} FAILED: {e!r}", flush=True)
         traceback.print_exc(file=sys.stdout)
         sys.stdout.flush()
         raise
+    finally:
+        host_worker.close()
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         sys.exit(_dp_rank_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--host-worker":
+        sys.exit(_host_worker_main(sys.argv[2]))
     sys.exit(main())

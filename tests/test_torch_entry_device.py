@@ -20,9 +20,11 @@ from tdnnf_nas_torch.ops import extras
 from tdnnf_nas_torch.parallel import mesh as mesh_mod
 from tdnnf_nas_torch.parallel import multihost
 from tdnnf_nas_torch.recipes import chain_recipes
-from tdnnf_nas_torch.tools import (e2e_flagship, e2e_search, e2e_wer_pipeline,
-                                   search_planted_table,
-                                   search_sanity_planted)
+from tdnnf_nas_torch.tools import (context_compare, e2e_flagship, e2e_search,
+                                   e2e_wer_pipeline, lhuc_regularized,
+                                   rnnlm_fair_fight, search_planted_table,
+                                   search_sanity_planted, wer_synthetic,
+                                   wpd_compare)
 from tdnnf_nas_torch.train import trainer
 from tdnnf_nas_torch.train.optimizer import tree_paths
 
@@ -73,6 +75,11 @@ _ENTRY_POINTS = {
     "e2e_wer_build_setup": (e2e_wer_pipeline.build_setup, ("sil", None)),
     "e2e_wer_run_base": (e2e_wer_pipeline.run_base, (None,)),
     "e2e_wer_run_search": (e2e_wer_pipeline.run_search, (None,)),
+    "lhuc_regularized_main": (lhuc_regularized.main, (["--out", "unused"],)),
+    "rnnlm_fair_fight_main": (rnnlm_fair_fight.main, (["--out", "unused"],)),
+    "context_compare_main": (context_compare.main, (["--out", "unused"],)),
+    "wpd_compare_main": (wpd_compare.main, (["--out", "unused"],)),
+    "wer_synthetic_main": (wer_synthetic.main, (["--out", "unused"],)),
     "featurize_batch": (audio.featurize_batch, ([np.zeros(400)], None)),
     "init_bayes_model": (bayes.init_bayes_model, (None, None)),
     "init_cnn_frontend": (cnn.init_cnn_frontend, (None, None)),
