@@ -128,8 +128,10 @@ built in its place).  Phases, each raising on failure:
      B = 16 and the adapted decode
      (WER before and after, ms/step, objf finite at every step, each
      blocked kernel once a step, each speaker's largest adapted logit
-     non-zero); one float32 LHUC step on the card against the CPU's
-     through the plain den;
+     non-zero); one float32 LHUC step on the card (kernels) held to the
+     same step in float64 on the CPU (``_lhuc_step_f64``, every op
+     checked to compute in float64; 1e-3 of the largest logit), the
+     CPU's float32 step held to it at 1e-2;
  10. (``_tri5_7d_phase``) the reference's tri5_7d path on the symmetric
      +-1 corpus of ``scripts/context_compare.py`` (``sym``: 30 phones,
      24-dim features, 720 utterances, 60 held out): e2e stages 1-2
@@ -198,7 +200,11 @@ built in its place).  Phases, each raising on failure:
      the batch's rows, and its params apart only where the gradient is
      rounding noise; every rank's params equal; each rank launches each
      blocked kernel once a step; then one ``adam`` step of a one-rank
-     NCCL group; ms/step of each;
+     NCCL group in a process of its own (``python3 chip_smoke.py
+     --dp-nccl DIR``, since one run died in it inside this process,
+     cause not known; every process of the script has ``faulthandler``
+     on, so a fault names its frames);
+     ms/step of each;
  14. (``_e2e_phase``) the whole flagship run in this process:
      ``tools/e2e_flagship.main(["all", "--smoke", "--out", TMP])``, the
      reference's nine stages at its smoke sizes with the 7q at full
@@ -261,7 +267,20 @@ built in its place).  Phases, each raising on failure:
      against its plain version on (c)'s ``pm1`` den at B = 48, T = 40
      (``_ctx`` keys), the dense pair on (e)'s den at B = 16, T = 20
      (``_ws`` keys), and one float32 step through the kernels against
-     the plain scan for (c)'s ``pm1`` contender and for (e).
+     the plain scan for (c)'s ``pm1`` contender and for (e);
+ 17. (``_tools_phase``) the six profile and bench tools, each tool's
+     ``run`` in this process into a temporary directory at a cut
+     (``TOOLS_ROUNDS`` rounds of ``TOOLS_CALLS`` calls a figure,
+     ``TOOLS_STEPS`` timed steps, ``SPARSE_SMOKE``, ``SCALING_SMOKE_RANKS``
+     gloo ranks sharing the card): ``profile_components`` (the biphone
+     den, S = 2,208), ``profile_den`` and ``bench_triphone_den`` on phase
+     1's production set-up (no set-up rebuilt: 10,271 states, 6,034
+     pdfs, 18,751,248 params), ``bench_sparse_decode`` on the host (C++
+     equal to numpy), ``bench_scaling`` (1 and 2 ranks, each a
+     subprocess; no process group left here) and ``bench_dense_den``
+     (kernels against the plain scan at 1e-5 in logZ); each prints one
+     line of figures, and a failing tool is named.  Its launches join
+     every row (the ranks' dense launches with them).
 
 Each phase prints ``[phase N name] start`` before it and ``[phase N
 name] ok <s> s`` after it; a failure prints ``[phase N name] FAILED:``
@@ -279,15 +298,17 @@ at B = 48, T = 40 with the suffix ``_ctx``; for the dense pair the B =
 sanity den (S = 16) with the suffix ``_sanity`` and phase 16's on
 ``wer_synthetic``'s den (B = 16, T = 20) with the suffix ``_ws``; the
 blocked rows' launches include phase 11's steps, phase 13's, every
-rank's, phase 14's, phase 15's and phase 16's, the dense rows' phase
-15's sanity run and phase 16's ``wer_synthetic``), and as
+rank's, phase 14's, phase 15's, phase 16's and phase 17's, the dense
+rows' phase 15's sanity run, phase 16's ``wer_synthetic`` and phase
+17's tools), and as
 its last
 line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the repository.
 
-Usage: python3 chip_smoke.py   (``--dp-rank DIR`` is phase 13's rank,
-``--host-worker DIR`` the host worker)
+Usage: python3 chip_smoke.py   (``--dp-rank DIR`` is phase 13's gloo
+rank, ``--dp-nccl DIR`` its NCCL rank, ``--host-worker DIR`` the host
+worker)
 """
 
 from __future__ import annotations
@@ -295,6 +316,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import json
 import os
 import subprocess
@@ -1841,17 +1863,99 @@ def _adapt_rescore_phase(torch, dev, gpu, ctx):
             mc32, obj32, 0.2, 0.0, convert.tree_to_device(state.params, d),
             convert.tree_to_device(state.bn_state, d), den_on_device(bundle, d),
             init_lhuc(mc32, d), convert.batch_to_torch(host, d))
+    exact, narrowed = _lhuc_step_f64(torch, mc32, obj32, state, bundle, host)
+    _check(not narrowed and all(v.dtype == np.float64
+                                for v in exact.values()),
+           f"the float64 LHUC step computed in float64 throughout "
+           f"(narrower ops: {dict(narrowed)})")
     a = convert.lhuc_to_numpy(new[dev])
     b = convert.lhuc_to_numpy(new["cpu"])
     err = max(float(np.abs(a[k] - b[k]).max()) for k in a)
     top = max(float(np.abs(b[k]).max()) for k in b)
-    print(f"[lhuc f32 step] card (kernels) vs CPU (plain den), B=16: logits "
-          f"max|err| {err:.2e} of max|logit| {top:.2e} (tol 1e-3 x max, the "
-          f"den gradient's own bar)", flush=True)
-    _check(top > 0 and err <= 1e-3 * top, "f32 LHUC step card equals CPU")
+    # The logits after one step are what is left of the numerator's and
+    # the den's gradients after they cancel, so float32 noise is large
+    # beside them, and the CPU's float32 step carries most of it (up to
+    # 0.63 of the card's bar against float64, the card's 0.19): as phase
+    # 11 holds ng's update, both float32 steps are held against the
+    # float64 step, the card's at the bar the card-vs-CPU figure had
+    # (1e-3 of the largest logit, which that figure missed in 1 of 12
+    # runs by the CPU's noise), the CPU's at 10x that bar.
+    top64 = max(float(np.abs(v).max()) for v in exact.values())
+    errs = {w: max(float(np.abs(x[k] - exact[k]).max()) for k in x)
+            for w, x in (("card", a), ("cpu", b))}
+    print(f"[lhuc f32 step] B=16, logits against the float64 step on the "
+          f"CPU: card (kernels) max|err| {errs['card']:.2e} (tol 1e-3 x "
+          f"max, the den gradient's own bar), CPU float32 (plain den) "
+          f"{errs['cpu']:.2e} (tol 1e-2 x max), of max|logit| "
+          f"{top64:.2e}; card vs CPU {err:.2e} of {top:.2e}", flush=True)
+    _check(top64 > 0 and errs["card"] <= 1e-3 * top64,
+           "f32 LHUC step on the card equals the float64 step")
+    _check(errs["cpu"] <= 1e-2 * top64,
+           "f32 LHUC step on the CPU equals the float64 step")
     print(f"[adapt-rescore phase] {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches, b16
+
+
+def _lhuc_step_f64(torch, mc32, objective_cfg, state, bundle, host):
+    """Phase 9's LHUC step (lr 0.2) in float64 on the CPU, the exact
+    reference of its float32 steps: the model computes in float64, the
+    den, state and batch are float64 copies, and the port's float32 casts
+    (``Tensor.float``) leave float64 tensors as they are.  Returns the new
+    logits as numpy and a count, by op, of the step's ops (backward
+    included) that made a narrower floating tensor out of a floating input
+    of more than one element: none when the step ran in float64 (0-dim
+    constants made in float32, such as a log floor, are not counted)."""
+    import collections
+    import dataclasses
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from tdnnf_nas_torch import convert
+    from tdnnf_nas_torch.models import TdnnfModelConfig
+    from tdnnf_nas_torch.models.lhuc import _lhuc_step, init_lhuc
+    from tdnnf_nas_torch.recipes.chain_recipes import den_on_device
+
+    to_f32 = torch.Tensor.float
+
+    def keep_f64(self, *a, **k):
+        return self if self.dtype == torch.float64 else to_f32(self, *a, **k)
+
+    def f64(x):
+        return (x.double() if torch.is_tensor(x) and x.is_floating_point()
+                else x)
+
+    den = den_on_device(bundle, "cpu")
+    den = dataclasses.replace(den, **{
+        f.name: f64(getattr(den, f.name)) for f in dataclasses.fields(den)})
+    batch = convert.map_batch(lambda _, a: f64(torch.as_tensor(a)), host)
+
+    def floating(tree):
+        return [x for x in tree_leaves(tree)
+                if torch.is_tensor(x) and x.is_floating_point()]
+
+    class Narrowed(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (any(x.dtype != torch.float64 for x in floating(out))
+                    and any(x.numel() > 1
+                            for x in floating((args, kwargs)))):
+                self.ops[str(func)] += 1
+            return out
+
+    args = (_to_f64(state.params), _to_f64(state.bn_state), den,
+            _to_f64(init_lhuc(mc32, "cpu")), batch)
+    watch = Narrowed()
+    with mock.patch.object(torch.Tensor, "float", keep_f64), \
+            mock.patch.object(TdnnfModelConfig, "dtype",
+                              property(lambda self: torch.float64)), watch:
+        new, _ = _lhuc_step(mc32, objective_cfg, 0.2, 0.0, *args)
+    return convert.lhuc_to_numpy(new), watch.ops
 
 
 # scripts/context_compare.py:65-72 with SYM on and HARD off: the symmetric
@@ -2601,6 +2705,24 @@ def _cnn_chunks(bundle, cfg, n_utts: int, chunk_width: int):
                     bundle.tree, ecfg, den_fsa=bundle.den_fsa)
 
 
+class _ReluTape:
+    """Stands in for ``torch.relu`` for one forward pass and keeps each
+    call's input (detached, on the CPU).  Given an earlier pass's tape
+    (``replay``), it takes that pass's branch at every unit (its input
+    where the earlier one was > 0, else 0), so the gradient follows the
+    same branches as the earlier pass's."""
+
+    def __init__(self, torch, replay=None):
+        self.relu, self.replay, self.inputs = torch.relu, replay, []
+
+    def __call__(self, x):
+        self.inputs.append(x.detach().cpu())
+        if self.replay is None:
+            return self.relu(x)
+        keep = self.replay.inputs[len(self.inputs) - 1] > 0
+        return x * keep.to(device=x.device, dtype=x.dtype)
+
+
 def _cnn_stage(torch, dev, gpu, g, bundle, model_cfg, chunk_width,
                batch_size):
     """11d: CNN-TDNN-F at the flagship's width (conv 32 / 32 (height
@@ -2618,7 +2740,6 @@ def _cnn_stage(torch, dev, gpu, g, bundle, model_cfg, chunk_width,
                                             init_cnn_tdnnf)
     from tdnnf_nas_torch.train import ChainObjectiveConfig
     from tdnnf_nas_torch.train.objective import chain_objective
-    from tdnnf_nas_torch.train.optimizer import tree_paths, tree_unflatten
 
     cfg = CnnTdnnfModelConfig(cnn=CnnFrontendConfig(), tdnnf=model_cfg)
     _check(cfg.cnn.out_dim() == 1280, "CNN front end out_dim 1,280")
@@ -2688,52 +2809,93 @@ def _cnn_stage(torch, dev, gpu, g, bundle, model_cfg, chunk_width,
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
               f"{extra} ({gpu})", flush=True)
 
+    _cnn_f32_check(torch, dev, cfg, _random_heads(torch, params, 5), alphas,
+                   state["bn"], batches[0]["feats"][:2], chunk_width)
+    return launches
+
+
+def _cnn_f32_check(torch, dev, cfg, p0, alphas, bn, feats,
+                   chunk_width):
+    """Phase 11d's float32 forward + grad of a CNN-TDNN-F (``cfg``, its
+    parameters ``p0``, ``alphas`` and BN state ``bn`` on ``dev``) on
+    ``feats``, on ``dev`` against the CPU."""
     # float32 forward + grad, card vs CPU, cuDNN TF32 off: 2 sequences of
     # the DARTS variant in softmax mode (its alphas get a gradient too),
-    # with the stored BN statistics.  The gradients are held as one vector
-    # (relative norm of the difference, 1e-3): of ~4 M ReLU inputs a few
-    # lie within float32 rounding of 0 and may take the other side on the
-    # other device, which moves single entries of a leaf by up to ~1e-2
-    # of its largest (seen on the CPU alone against float64) but not the
-    # vector's norm (float32 vs float64 on the CPU: 1.4e-6)
-    f32 = cfg.replace(tdnnf=model_cfg.replace(compute_dtype="float32"))
-    p0 = _random_heads(torch, params, 5)
-    feats = batches[0]["feats"][:2]
-    rng = np.random.RandomState(6)
-    r = torch.from_numpy(rng.randn(2, chunk_width, model_cfg.num_pdfs)
-                         .astype(np.float32))
+    # with the stored BN statistics.  Of ~4 M ReLU inputs a few lie within
+    # float32 rounding of 0 and may take the other side on the other
+    # device; each such flip leaves the logits as they were but moves a
+    # frame's share of a row of the gradient (up to 4e-2 of a leaf's
+    # largest entry and 3.9e-4 of the vector's norm in card runs that
+    # passed, past the 1e-3 bar in one that failed).  So the CPU's pass
+    # takes the card's branch at every ReLU (``_ReluTape``): every ReLU's
+    # input is held card vs CPU, the units whose sign differs must be few
+    # and near 0, and then the gradients, as one vector (relative norm of
+    # the difference), at 1e-3; the figure without the replay is printed.
+    from tdnnf_nas_torch.models.cnn import apply_cnn_tdnnf
+    from tdnnf_nas_torch.train.optimizer import tree_paths, tree_unflatten
 
-    def fwd_grad(p_tree, a_tree, bn_tree, x, rr):
+    f32 = cfg.replace(tdnnf=cfg.tdnnf.replace(compute_dtype="float32"))
+    rng = np.random.RandomState(6)
+    r = torch.from_numpy(rng.randn(feats.shape[0], chunk_width,
+                                   cfg.tdnnf.num_pdfs).astype(np.float32))
+
+    def fwd_grad(p_tree, a_tree, bn_tree, x, rr, tape):
         pl, al = tree_paths(p_tree), tree_paths(a_tree)
         pv = [v.detach().requires_grad_(True) for _, v in pl]
         av = [v.detach().requires_grad_(True) for _, v in al]
-        chain, xent, _ = apply_cnn_tdnnf(
-            f32, tree_unflatten([(k, v) for (k, _), v in zip(pl, pv)]),
-            bn_tree, x,
-            alphas=tree_unflatten([(k, v) for (k, _), v in zip(al, av)]),
-            mode="softmax", tau=1.0, train=False)
+        with mock.patch.object(torch, "relu", tape):
+            chain, xent, _ = apply_cnn_tdnnf(
+                f32, tree_unflatten([(k, v) for (k, _), v in zip(pl, pv)]),
+                bn_tree, x,
+                alphas=tree_unflatten([(k, v) for (k, _), v in zip(al, av)]),
+                mode="softmax", tau=1.0, train=False)
         loss = torch.mean(chain * rr) + torch.mean(xent * rr)
         return chain.detach(), torch.autograd.grad(loss, pv + av)
 
-    c_card, g_card = fwd_grad(p0, alphas, state["bn"], feats, r.to(dev))
-    c_cpu, g_cpu = fwd_grad(_to_cpu(p0), _to_cpu(alphas),
-                            _to_cpu(state["bn"]), feats.cpu(), r)
+    def rel_norm(got, ref):
+        return float(torch.sqrt(
+            sum(torch.sum((a - b).double() ** 2) for a, b in zip(got, ref))
+            / sum(torch.sum(b.double() ** 2) for b in ref)))
+
+    card_tape = _ReluTape(torch)
+    c_card, g_card = fwd_grad(p0, alphas, bn, feats, r.to(dev), card_tape)
+    cpu_args = (_to_cpu(p0), _to_cpu(alphas), _to_cpu(bn), feats.cpu(), r)
+    _, g_own = fwd_grad(*cpu_args, _ReluTape(torch))
+    cpu_tape = _ReluTape(torch, replay=card_tape)
+    c_cpu, g_cpu = fwd_grad(*cpu_args, cpu_tape)
     c_card, g_card = c_card.cpu(), [x.cpu() for x in g_card]
     err = float((c_card - c_cpu).abs().max())
     ok = bool(torch.allclose(c_card, c_cpu, rtol=1e-4, atol=1e-4))
-    rel = float(torch.sqrt(sum(torch.sum((a - b).double() ** 2)
-                               for a, b in zip(g_card, g_cpu))
-                           / sum(torch.sum(b.double() ** 2) for b in g_cpu)))
+    units, flips, near, x_ok = 0, 0, 0.0, True
+    for xc, xg in zip(card_tape.inputs, cpu_tape.inputs):
+        top = max(float(xg.abs().max()), 1e-30)
+        x_ok &= bool(torch.allclose(xc, xg, rtol=1e-4, atol=1e-4 * top))
+        flip = (xc > 0) != (xg > 0)
+        units += xg.numel()
+        flips += int(flip.sum())
+        if flip.any():
+            near = max(near, float(torch.maximum(xc[flip].abs(),
+                                                 xg[flip].abs()).max())
+                       / top)
+    rel, rel_own = rel_norm(g_card, g_cpu), rel_norm(g_card, g_own)
     names = ["/".join(k) for k, _ in tree_paths(p0)] + ["alphas"]
     worst, at = _worst_share(g_card, [x.double() for x in g_cpu], names)
     print(f"[cnn f32] logits {list(c_cpu.shape)} card vs CPU max|d| "
-          f"{err:.2e} (rtol/atol 1e-4); gradients of {len(g_cpu)} leaves "
-          f"(alphas included): relative norm of the difference {rel:.2e} "
-          f"(bar 1e-3), worst entry {worst:.2e} of its leaf's largest "
-          f"({at})", flush=True)
+          f"{err:.2e} (rtol/atol 1e-4); inputs of {len(cpu_tape.inputs)} "
+          f"ReLUs ({units:,} units) equal {x_ok} (rtol 1e-4, atol 1e-4 x "
+          f"each's max), {flips} units of other sign on the CPU (bar "
+          f"{units // 10000}), the farthest {near:.2e} of its ReLU's max "
+          f"input from 0 (bar 1e-3); gradients of {len(g_cpu)} leaves "
+          f"(alphas included) with the card's ReLU branches: relative "
+          f"norm of the difference {rel:.2e} (bar 1e-3), worst entry "
+          f"{worst:.2e} of its leaf's largest ({at}); with the CPU's own "
+          f"branches {rel_own:.2e}", flush=True)
     _check(ok, "cnn f32 logits card vs CPU")
+    _check(len(card_tape.inputs) == len(cpu_tape.inputs) and x_ok,
+           "cnn f32 ReLU inputs card vs CPU")
+    _check(flips <= units // 10000 and near <= 1e-3,
+           "cnn f32 ReLU units of other sign few and within rounding of 0")
     _check(rel <= 1e-3, "cnn f32 gradients card vs CPU")
-    return launches
 
 
 def _trainers_phase(torch, dev, gpu, g, bundle, model_cfg, batches,
@@ -3350,6 +3512,38 @@ def _dp_rank_main(work: str) -> int:
     return 0
 
 
+def _dp_nccl_main(work: str) -> int:
+    """Phase 13's one-rank NCCL group, started by ``_dp_phase`` as
+    ``python3 chip_smoke.py --dp-nccl DIR`` with COORDINATOR_ADDRESS,
+    NUM_PROCESSES=1 and PROCESS_ID=0 set: one ``adam`` step on the card
+    from phase 13's inputs in DIR; writes its objf, time and launches to
+    DIR/nccl.npz."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tdnnf_nas_torch import parallel
+    from tdnnf_nas_torch.ops.fwdbwd import BlockedDenGraph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host_den, host_batches, _ = _load_dp_inputs(
+        os.path.join(work, "inputs.npz"))
+    _check(parallel.initialize_from_env(), "the NCCL group started")
+    try:
+        _check(torch.distributed.get_backend() == "nccl", "NCCL backend")
+        mesh = parallel.make_mesh()
+        g = BlockedDenGraph.from_host(host_den, mesh.device)
+        objf, ms, _, launches = _dp_train(torch, mesh.device, g,
+                                          host_batches, mesh,
+                                          host_den.num_pdfs, "adam",
+                                          steps=1)[:4]
+    finally:
+        torch.distributed.destroy_process_group()
+    np.savez(os.path.join(work, "nccl.npz"), objf=np.asarray(objf),
+             ms=np.asarray(ms), launches=np.asarray(launches))
+    return 0
+
+
 def _free_port() -> int:
     import socket
 
@@ -3364,12 +3558,12 @@ def _dp_phase(torch, dev, gpu, host_den, host_batches):
     only two-rank check one card allows), started through
     ``initialize_from_env`` in processes of their own, each stepping on
     32 rows of the global batch of 64, against one process at 64 in this
-    one; then one step of a one-rank NCCL group, the production backend.
-    Returns the blocked kernels' launches of every step of the phase."""
+    one; then one step of a one-rank NCCL group, the production backend,
+    in a process of its own (``_dp_nccl_main``).  Returns the blocked
+    kernels' launches of every step of the phase."""
     import tempfile
-    from unittest import mock
 
-    from tdnnf_nas_torch import convert, parallel
+    from tdnnf_nas_torch import convert
     from tdnnf_nas_torch.models import (TdnnfModelConfig, apply_model,
                                         init_model)
     from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
@@ -3424,6 +3618,25 @@ def _dp_phase(torch, dev, gpu, host_den, host_batches):
             _check(p.returncode == 0, f"dp rank {rank} ran to its end")
         ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz")))
                  for r in range(DP_RANKS)]
+        # ---- one step of a one-rank NCCL group, in its own process ----
+        env = dict(os.environ,
+                   COORDINATOR_ADDRESS=f"localhost:{_free_port()}",
+                   NUM_PROCESSES="1", PROCESS_ID="0")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-nccl", work],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            log = proc.communicate(timeout=DP_TIMEOUT_S)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            print(f"[dp] the NCCL rank exited {proc.returncode}:\n"
+                  f"{log[-4000:]}", flush=True)
+        _check(proc.returncode == 0, "the NCCL rank ran to its end")
+        nccl = dict(np.load(os.path.join(work, "nccl.npz")))
     launches = np.sum([ref[k][3] for k in DP_KINDS], axis=0)
     for kind in DP_KINDS:
         ref_objf, ref_ms, ref_params = ref[kind][:3]
@@ -3542,20 +3755,8 @@ def _dp_phase(torch, dev, gpu, host_den, host_batches):
             _check(d_param[1] <= 5e-4, f"sgd: params after {DP_STEPS} "
                    "steps within 5e-4")
 
-    # ---- one step of a one-rank NCCL group ----
-    env = {"COORDINATOR_ADDRESS": f"localhost:{_free_port()}",
-           "NUM_PROCESSES": "1", "PROCESS_ID": "0"}
-    with mock.patch.dict(os.environ, env):
-        _check(parallel.initialize_from_env(), "the NCCL group started")
-    try:
-        _check(torch.distributed.get_backend() == "nccl", "NCCL backend")
-        mesh = parallel.make_mesh()
-        objf, ms, _, nccl_launch = _dp_train(torch, mesh.device, g,
-                                             host_batches, mesh,
-                                             host_den.num_pdfs, "adam",
-                                             steps=1)[:4]
-    finally:
-        torch.distributed.destroy_process_group()
+    objf, ms = nccl["objf"], nccl["ms"]
+    nccl_launch = nccl["launches"].tolist()
     _check(nccl_launch == [1, 1], "the NCCL step launched each kernel once")
     ref_adam = ref["adam"][0][0]
     print(f"[dp nccl x1] one adam step: objf_mmi {objf[0]:.6f} (one "
@@ -4490,8 +4691,135 @@ def _comparison_drivers_phase(torch, dev, gpu, host_worker, e2e_setup,
     return blocked_total, dense_total, ctx, wsd
 
 
+# Phase 17's cuts: rounds and calls per figure, the train steps of
+# bench_triphone_den, bench_sparse_decode's vocabulary and test set, and
+# bench_scaling's gloo ranks on the one card
+TOOLS_ROUNDS, TOOLS_CALLS, TOOLS_STEPS = 2, 3, 5
+SPARSE_SMOKE = dict(vocab_size=1000, n_train_sents=5000, n_test=4)
+SCALING_SMOKE_RANKS = 2
+
+
+@contextlib.contextmanager
+def _tool(name: str):
+    """Names the tool that fails, with its seconds on success."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    except Exception as e:
+        raise RuntimeError(f"tool {name} failed: {e!r}") from e
+    print(f"[tools] {name} ok {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _finite(res: dict, keys, what: str) -> None:
+    _check(all(np.isfinite(res[k]) and res[k] > 0 for k in keys),
+           f"{what}: finite positive {', '.join(keys)}")
+
+
+def _tools_phase(torch, dev, gpu, tree, bundle):
+    """17: the six profile and bench tools at cut sizes on the card, each
+    held to its keys, its host figures and its den's kernels; rows 2-3 on
+    phase 1's production set-up (``tree``, ``bundle``).  Returns the
+    kernels' launches of the phase: ((blocked fwd, bwd), (dense fwd,
+    bwd))."""
+    import tempfile
+
+    from tdnnf_nas_torch.ops import blocked_den_cuda as bdc
+    from tdnnf_nas_torch.ops import dense_den_cuda as ddc
+    from tdnnf_nas_torch.tools import (bench_dense_den, bench_scaling,
+                                       bench_sparse_decode,
+                                       bench_triphone_den,
+                                       profile_components, profile_den)
+
+    for fn in (bdc.blocked_den_fwd_cuda, bdc.blocked_den_bwd_cuda,
+               ddc.dense_den_fwd_cuda, ddc.dense_den_bwd_cuda):
+        fn.launches = 0
+    timing = dict(n=TOOLS_CALLS, rounds=TOOLS_ROUNDS, device=dev)
+    with tempfile.TemporaryDirectory() as out:
+        with _tool("profile_components"):
+            res = profile_components.run(out, **timing)
+            _finite(res, profile_components.KEYS, "profile_components")
+            _check(res["den_states"] == res["tree_pdfs"] == 2208,
+                   "profile_components: the biphone den, S = 2,208")
+            print("[tools] profile_components ms: " + ", ".join(
+                f"{k} {res[k]:.3f}" for k in profile_components.KEYS)
+                + f" ({gpu})", flush=True)
+        with _tool("profile_den"):
+            res = profile_den.run(out, bundle=bundle, tree=tree, **timing)
+            _finite(res, profile_den.KEYS, "profile_den")
+            _check(res["den_states"] == 10271, "profile_den: 10,271 states")
+            print("[tools] profile_den ms: " + ", ".join(
+                f"{k} {res[k]:.3f}" for k in profile_den.KEYS)
+                + f" ({gpu})", flush=True)
+        with _tool("bench_triphone_den"):
+            res = bench_triphone_den.run(out, TOOLS_STEPS, bundle=bundle,
+                                         tree=tree, rounds=TOOLS_ROUNDS,
+                                         reps=TOOLS_CALLS, device=dev)
+            _check(set(bench_triphone_den.KEYS) <= set(res),
+                   "bench_triphone_den: the reference's keys")
+            _check((res["num_pdfs"], res["den_states"], res["params"])
+                   == (6034, 10271, 18_751_248),
+                   "bench_triphone_den: 6,034 pdfs, 10,271 states, "
+                   "18,751,248 params")
+            _finite(res, ("den_fwd_grad_ms", "train_step_ms"),
+                    "bench_triphone_den")
+            _check(np.isfinite(res["objf_mmi"]), "bench_triphone_den: objf")
+            print(f"[tools] bench_triphone_den: den fwd+grad "
+                  f"{res['den_fwd_grad_ms']} ms, step {res['train_step_ms']}"
+                  f" ms over {TOOLS_STEPS} steps, objf {res['objf_mmi']}, "
+                  f"positions {res['den_positions']}, K "
+                  f"{res['den_in_degree_K']}, LM states "
+                  f"{res['phone_lm_states']} ({gpu})", flush=True)
+        with _tool("bench_sparse_decode"):
+            _print_cut("bench_sparse_decode", SPARSE_SMOKE,
+                       bench_sparse_decode.PRESETS["5k"])
+            res, hyps = bench_sparse_decode.run(out, **SPARSE_SMOKE)
+            _check(len(hyps) == SPARSE_SMOKE["n_test"]
+                   and np.isfinite(res["wer"])
+                   and res["native_python_mismatches"] == 0,
+                   "bench_sparse_decode: finite WER, C++ equals numpy")
+            print(f"[tools] bench_sparse_decode: HCLG {res['graph_states']} "
+                  f"states, {res['graph_arcs']} arcs; WER {res['wer']:.2f}; "
+                  f"RTF {res['rtf']} (numpy {res['rtf_python']}); lattices "
+                  f"{res['lattice_bestpath_match']}", flush=True)
+        with _tool("bench_scaling"):
+            res = bench_scaling.run(out, max_ranks=SCALING_SMOKE_RANKS,
+                                    backend="gloo", device=dev)
+            _check(set(res["throughput"]) == {"1", "2"}
+                   and np.isfinite(res["objf_parity_10step_max_abs_delta"]),
+                   "bench_scaling: 1 and 2 ranks, finite parity")
+            _check(not torch.distributed.is_initialized(),
+                   "bench_scaling: no process group left here")
+            scaling = res["dense_den_launches"]
+            _check(min(scaling) > 0, "bench_scaling: the ranks launched the "
+                   "dense kernels")
+            print(f"[tools] bench_scaling (2 gloo ranks on one card): "
+                  + ", ".join(f"{n} ranks {r['chunks_per_s']} chunks/s"
+                              for n, r in res["throughput"].items())
+                  + "; adam parity "
+                  f"{res['objf_parity_10step_max_abs_delta']:.2e} ({gpu})",
+                  flush=True)
+        with _tool("bench_dense_den"):
+            res = bench_dense_den.run(out, **timing)
+            _finite(res, ("plain_fwd", "kernel_fwd", "plain_fwd_grad",
+                          "kernel_fwd_grad"), "bench_dense_den")
+            _check(res["fwd_rel_err"] <= 1e-5
+                   and res["grad_max_abs_err"] <= 1e-3,
+                   "bench_dense_den: kernels equal the plain scan")
+            print(f"[tools] bench_dense_den ms: kernel fwd "
+                  f"{res['kernel_fwd']:.3f} / fwd+grad "
+                  f"{res['kernel_fwd_grad']:.3f}, plain "
+                  f"{res['plain_fwd']:.3f} / {res['plain_fwd_grad']:.3f}; "
+                  f"fwd rel err {res['fwd_rel_err']:.2e}, grad err "
+                  f"{res['grad_max_abs_err']:.2e} ({gpu})", flush=True)
+    blocked = _blocked_launches(bdc)
+    dense = tuple(a + b for a, b in zip(_dense_launches(ddc), scaling))
+    _check(min(blocked) > 0 and min(dense) > 0,
+           "phase 17 launched each of the four kernels")
+    return blocked, dense
+
+
 def _smoke(torch, phase, host_worker) -> int:
-    """Phases 0-16, then the kernels line and the result line;
+    """Phases 0-17, then the kernels line and the result line;
     ``host_worker`` builds phase 12's and phase 16's host set-ups."""
     sys.path.insert(0, REPO)
     from tdnnf_nas_torch import convert
@@ -4716,6 +5044,11 @@ def _smoke(torch, phase, host_worker) -> int:
             torch, dev, gpu, host_worker, e2e_setup, e2e_file)
         del e2e_setup
 
+    # ---- 17. the profile and bench tools ----
+    with phase(17, "profile and bench tools"):
+        tools_blocked, tools_dense = _tools_phase(torch, dev, gpu, tree,
+                                                  bundle)
+
     for i, k in enumerate(("fwd", "bwd")):
         print(f"[launches] blocked_den_{k}: training {launches[k]}, "
               f"loader-fed phase {loader_launches[k]}, decode-phase "
@@ -4724,18 +5057,18 @@ def _smoke(torch, phase, host_worker) -> int:
               f"steps {trainer_launches[k]}, data-parallel phase "
               f"{dp_launches[k]}, e2e run {e2e_launches[k]}, search "
               f"experiments {search_blocked[i]}, comparison drivers "
-              f"{compare_blocked[i]}", flush=True)
+              f"{compare_blocked[i]}, tools {tools_blocked[i]}", flush=True)
         launches[k] += (loader_launches[k] + decode_launches[k]
                         + lhuc_launches[k] + pm1_launches[k]
                         + trainer_launches[k] + dp_launches[k]
                         + e2e_launches[k] + search_blocked[i]
-                        + compare_blocked[i])
+                        + compare_blocked[i] + tools_blocked[i])
     for i, row in enumerate(dense):
         k = ("fwd", "bwd")[i]
         print(f"[launches] {row['name']}: phases 5-6 {row['launches']}, "
               f"search experiments {search_dense[i]}, comparison drivers "
-              f"{compare_dense[i]}", flush=True)
-        row["launches"] += search_dense[i] + compare_dense[i]
+              f"{compare_dense[i]}, tools {tools_dense[i]}", flush=True)
+        row["launches"] += search_dense[i] + compare_dense[i] + tools_dense[i]
         row["max_abs_err"] = max(row["max_abs_err"], wsd[k]["max_abs_err"])
         row.update({f"{key}_ws": v for key, v in wsd[k].items()})
 
@@ -4801,8 +5134,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # a fault in a kernel or a native library names its Python frames, in
+    # this process and in every process it starts
+    faulthandler.enable(file=sys.stdout, all_threads=True)
+    os.environ["PYTHONFAULTHANDLER"] = "1"
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         sys.exit(_dp_rank_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-nccl":
+        sys.exit(_dp_nccl_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--host-worker":
         sys.exit(_host_worker_main(sys.argv[2]))
     sys.exit(main())

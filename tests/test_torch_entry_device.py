@@ -20,9 +20,12 @@ from tdnnf_nas_torch.ops import extras
 from tdnnf_nas_torch.parallel import mesh as mesh_mod
 from tdnnf_nas_torch.parallel import multihost
 from tdnnf_nas_torch.recipes import chain_recipes
-from tdnnf_nas_torch.tools import (context_compare, e2e_flagship, e2e_search,
-                                   e2e_wer_pipeline, lhuc_regularized,
-                                   rnnlm_fair_fight, search_planted_table,
+from tdnnf_nas_torch.tools import (bench_dense_den, bench_scaling,
+                                   bench_triphone_den, context_compare,
+                                   e2e_flagship, e2e_search, e2e_wer_pipeline,
+                                   lhuc_regularized, profile_components,
+                                   profile_den, rnnlm_fair_fight,
+                                   search_planted_table,
                                    search_sanity_planted, wer_synthetic,
                                    wpd_compare)
 from tdnnf_nas_torch.train import trainer
@@ -32,6 +35,11 @@ from tdnnf_nas_torch.train.optimizer import tree_paths
 # resolved before any of them is used)
 _ENTRY_POINTS = {
     "train_model": (chain_recipes.train_model, (None, None, None, 1)),
+    "profile_components": (profile_components.run, ()),
+    "profile_den": (profile_den.run, ()),
+    "bench_triphone_den": (bench_triphone_den.run, ()),
+    "bench_scaling": (bench_scaling.run, ()),
+    "bench_dense_den": (bench_dense_den.run, ()),
     "run_offset_search_pipeline": (
         chain_recipes.run_offset_search_pipeline, (None, None)),
     "run_bottleneck_search_pipeline": (

@@ -88,11 +88,15 @@ def test_no_port_source_imports_jax_anywhere():
                                   "search_planted_table", "e2e_wer_pipeline",
                                   "lhuc_regularized", "rnnlm_fair_fight",
                                   "context_compare", "wpd_compare",
-                                  "wer_synthetic"])
+                                  "wer_synthetic", "profile_components",
+                                  "profile_den", "bench_triphone_den",
+                                  "bench_sparse_decode", "bench_scaling",
+                                  "bench_dense_den"])
 def test_search_tools_import_neither_jax_nor_scripts(name):
-    """The search tools and the comparison drivers are scanned with the
-    rest of the port, and carry their own copies of the reference
-    scripts' numpy pieces: no import of ``scripts`` either."""
+    """The search tools, the comparison drivers and the profile and bench
+    tools are scanned with the rest of the port, and carry their own
+    copies of the reference scripts' numpy pieces: no import of
+    ``scripts`` either."""
     path = os.path.join(_REPO, "tdnnf_nas_torch", "tools", f"{name}.py")
     assert path in _port_sources()
     with open(path) as f:
