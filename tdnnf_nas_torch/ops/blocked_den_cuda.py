@@ -16,23 +16,31 @@ made once per graph).
 Build: at first use, by ``ops/cuda_build.py`` (nvcc for sm_90a into the
 git-ignored ``tdnnf_nas_torch/_build/``, keyed on a hash of the source),
 loaded with ctypes.  Each direction is one C call: a memset of its
-scratch and one cooperative launch on the current stream.
+scratch and one cooperative launch on the current stream, of the
+instantiation the library's ``plan`` picks from the graph's shape and
+the device (tile rows, depth splits, rows staged whole or by part, row
+parts); a shape it has no plan for raises, naming why.  Rows staged by
+part read the graph's ``gather_plan`` (made once per graph and part
+count).  Both wrappers take ``out=``/``scratch=`` buffers, so that a
+caller can surround them with sentinel bands.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  There is no fallback.
 
 Beside the plain versions, ``blocked_scan_fwd_emulated`` /
 ``blocked_scan_bwd_emulated`` repeat the kernels' own arithmetic in torch
-(3xTF32 products, deferred normalization, the adjoint's split partial
-sums and its row dot through the gathered alphas), so the CPU tests can
-hold the design against the plain scan.  Nothing on the main path calls
-them.
+(3xTF32 products, deferred normalization, the split partial sums of
+both directions' products and the adjoint's row dot through the gathered
+alphas), and ``gather_parts_emulated`` the gather from rows staged by
+part, so the CPU tests can hold the design against the plain scan and
+JAX's.  Nothing on the main path calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -179,20 +187,25 @@ def split_tf32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return xl @ wh + xh @ wl + xh @ wh
 
 
-def _split_bounds(ndp: int, splits: int):
-    """The adjoint kernel's d-ranges: 32-wide chunks shared out evenly."""
-    chunks = -(-ndp // 32)
+def _split_bounds(depth: int, splits: int):
+    """The kernels' depth ranges of a split product (the adjoint's over
+    NDP, the forward's over NSRC): 32-deep stages shared out evenly, the
+    last ranges shorter or empty."""
+    chunks = -(-depth // 32)
     per = -(-chunks // splits)
-    return [(min(ndp, s * per * 32), min(ndp, (s + 1) * per * 32))
+    return [(min(depth, s * per * 32), min(depth, (s + 1) * per * 32))
             for s in range(splits)]
 
 
-def blocked_scan_fwd_emulated(obs_virtual: torch.Tensor, g, leaky: float):
+def blocked_scan_fwd_emulated(obs_virtual: torch.Tensor, g, leaky: float,
+                              splits: int = 1):
     """The forward kernel's arithmetic: deferred normalization (beta from
     the unnormalized alpha, divided by the scale), 3xTF32 block products
-    and, on a wildcard graph, the group sums of beta times the groups'
-    out-rows in float32.  Same contract as :func:`blocked_scan_fwd_plain`;
-    refuses a wildcard term the kernels cannot take (``_wildcard``)."""
+    in ``splits`` partial products over NSRC, summed in order and then
+    multiplied by obs, and, on a wildcard graph, the group sums of beta
+    times the groups' out-rows in float32, added to split 0.  Same
+    contract as :func:`blocked_scan_fwd_plain`; refuses a wildcard term
+    the kernels cannot take (``_wildcard``)."""
     _wildcard(g)
     b, t, v = obs_virtual.shape
     c, nsrc, ndp, _, _ = _dims(g)
@@ -207,11 +220,15 @@ def blocked_scan_fwd_emulated(obs_virtual: torch.Tensor, g, leaky: float):
         beta = _gather_beta(a, g) * rc
         if leaky > 0.0:
             beta = beta + leaky * g.init_pos[None, :]
-        prod = split_tf32_matmul(beta.reshape(b, c, nsrc).transpose(0, 1),
-                                 g.w_blocks)
-        a = prod.transpose(0, 1).reshape(b, v)
+        b3 = beta.reshape(b, c, nsrc).transpose(0, 1)
+        parts = [split_tf32_matmul(b3[:, :, s0:s1], g.w_blocks[:, s0:s1])
+                 .transpose(0, 1).reshape(b, v)
+                 for s0, s1 in _split_bounds(nsrc, splits)]
         if g.bcast_sel is not None:
-            a = a + (beta @ g.bcast_sel) @ g.bcast_vec
+            parts[0] = parts[0] + (beta @ g.bcast_sel) @ g.bcast_vec
+        a = parts[0]
+        for part in parts[1:]:
+            a = a + part
         a = a * obs[:, ti]
     cn = torch.clamp(a.sum(dim=-1), min=_TINY)
     alphas.append(a * (1.0 / cn)[:, None])
@@ -270,6 +287,50 @@ def blocked_scan_bwd_emulated(obs_virtual: torch.Tensor, g,
     return torch.stack(grads[::-1], dim=1)
 
 
+def part_stage_rows(g, j0: int, j1: int, plan: torch.Tensor) -> torch.Tensor:
+    """The row elements the kernels stage for the gather of source slots
+    [j0, j1) of a row too long for shared memory (``stage_part`` in
+    ``csrc/blocked_den.cu``), placed as the kernels place them through the
+    part's ``gather_plan`` rows ``plan[j0:j1]``: enter slot r of slot
+    j0 + i at r*n + i (-1: the sentinel slot's zero), its loop slot at
+    R*n + i, n = j1 - j0."""
+    c, nsrc, ndp, r, ndpos = _dims(g)
+    n = j1 - j0
+    j = torch.arange(j0, j1)
+    cj = j // nsrc
+    loop = cj * ndp + r * ndpos + (j - cj * nsrc)
+    out = torch.full((r * n,), -1, dtype=torch.long)
+    i, k = plan[j0:j1, 0].long(), plan[j0:j1, 1].long()
+    kc = torch.where(k >= 0, k // ndpos, 0)
+    base = kc * ndp + (k - kc * ndpos)
+    for e in range(r):
+        out[e * n + i] = torch.where(k >= 0, base + e * ndpos, -1)
+    return torch.cat([out, loop])
+
+
+def gather_parts_emulated(alpha: torch.Tensor, g, parts: int) -> torch.Tensor:
+    """beta0 [B, C*NSRC] (the gather without the leaky term) as the kernels
+    take it from rows staged part by part: part h of ``parts`` stages
+    ``part_stage_rows`` of its source slots through the graph's
+    ``gather_plan`` (zero for -1) and sums each slot's enter slots in slot
+    order, then adds its loop slot (``gather_part``)."""
+    c, nsrc, _, r, _ = _dims(g)
+    cs = c * nsrc
+    plan = gather_plan(g, parts).cpu()
+    out = []
+    for h in range(parts):
+        j0, j1 = cs * h // parts, cs * (h + 1) // parts
+        n = j1 - j0
+        idx = part_stage_rows(g, j0, j1, plan)
+        staged = torch.where(idx >= 0, alpha[:, idx.clamp(min=0)],
+                             alpha.new_zeros(()))
+        acc = staged[:, :n]
+        for i in range(1, r):
+            acc = acc + staged[:, i * n:(i + 1) * n]
+        out.append(acc + staged[:, r * n:])
+    return torch.cat(out, dim=1)
+
+
 # ----------------------------------------------------------- CUDA binding
 
 @functools.lru_cache(maxsize=None)
@@ -278,33 +339,70 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load(_SRC)
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
-    lib.blocked_den_fwd_scratch.argtypes = [i] * 5
-    lib.blocked_den_fwd_scratch.restype = ll
+    lib.blocked_den_plan.argtypes = [i] * 7 + [p]
+    lib.blocked_den_plan.restype = i
+    lib.blocked_den_scratch.argtypes = [i] * 7
+    lib.blocked_den_scratch.restype = ll
     lib.blocked_den_max_groups.argtypes = []
     lib.blocked_den_max_groups.restype = i
-    lib.blocked_den_bwd_splits.argtypes = [i] * 4
-    lib.blocked_den_bwd_splits.restype = i
-    lib.blocked_den_bwd_scratch.argtypes = [i] * 6
-    lib.blocked_den_bwd_scratch.restype = ll
-    lib.blocked_den_fwd.argtypes = ([p, i, p, p, p, p, p, p, p, f] + [i] * 8
-                                    + [p] * 4 + [p])
+    lib.blocked_den_fwd.argtypes = ([p, i, p, p, p, p, p, p, p, p, f]
+                                    + [i] * 8 + [p] * 4 + [p])
     lib.blocked_den_fwd.restype = i
-    lib.blocked_den_bwd.argtypes = ([p, i] + [p] * 9 + [i] * 9
+    lib.blocked_den_bwd.argtypes = ([p, i] + [p] * 10 + [i] * 8
                                     + [p] * 2 + [p])
     lib.blocked_den_bwd.restype = i
     return lib
 
 
+class Plan(NamedTuple):
+    """What the library picks for one scan of a graph on one device (the
+    graph's shape and the device decide, nothing else): the product's tile
+    rows (16 at B <= 16, else 64), its depth splits (forward: over NSRC,
+    adjoint: over NDP), whether rows are staged part by part (a row, beside
+    u in the adjoint, past the row passes' shared memory), the row parts
+    per row, the grid (blocks of the persistent launch) and whether the
+    adjoint copies W with the L2 policy evict_first (rows staged by part
+    and a W past L2).  The launches plan for themselves with the same
+    code."""
+    tile_rows: int
+    splits: int
+    part_staged: bool
+    row_parts: int
+    grid: int
+    w_evict_first: bool
+
+
+# blocked_den_plan's own failures, beside CUDA's error codes
+_PLAN_ERRORS = {-1: "a shape the kernels do not take",
+                -2: "a staged row part that does not fit shared memory "
+                    "at 16 parts a row"}
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_splits(device_index: int, b: int, c: int, nsrc: int,
-                ndp: int) -> int:
-    """The adjoint's d-splits on this device (as many as fill its SMs)."""
+def plan(device_index: int, fwd: bool, b: int, c: int, nsrc: int, ndp: int,
+         r: int, rw: int) -> Plan:
+    """The forward's (``fwd``) or the adjoint's plan for a B-row batch on
+    a graph of C superblocks, NSRC sources, NDP slots, R enter slots and RW
+    wildcard groups, on CUDA device ``device_index``.  Raises, naming what
+    failed, where the library has no plan."""
+    out = (ctypes.c_int * 6)()
     with torch.cuda.device(device_index):
-        s = _library().blocked_den_bwd_splits(b, c, nsrc, ndp)
-    if s < 1:
-        raise RuntimeError("blocked_den_bwd_splits: CUDA occupancy query "
-                           "failed")
-    return s
+        rc = _library().blocked_den_plan(int(fwd), b, c, nsrc, ndp, r, rw,
+                                         out)
+    if rc != 0:
+        what = _PLAN_ERRORS.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(
+            f"blocked_den_plan ({'forward' if fwd else 'adjoint'}, B={b} "
+            f"C={c} NSRC={nsrc} NDP={ndp} R={r} RW={rw}) failed: {what}")
+    return Plan(out[0], out[1], bool(out[2]), out[3], out[4], bool(out[5]))
+
+
+def _device_plan(obs_virtual: torch.Tensor, g, fwd: bool) -> Plan:
+    dev = obs_virtual.device
+    c, nsrc, ndp = g.w_blocks.shape
+    return plan(dev.index if dev.index is not None
+                else torch.cuda.current_device(), fwd, obs_virtual.shape[0],
+                c, nsrc, ndp, g.enter_pad, _wildcard(g)[2])
 
 
 def _w_rows16(g) -> torch.Tensor:
@@ -360,6 +458,34 @@ def _wildcard(g):
     return out
 
 
+def gather_plan(g, parts: int) -> torch.Tensor:
+    """The kernels' gather plan of rows staged part by part, [C*NSRC, 2]
+    int32 on the graph's device: for the source slots [j0, j1) of each of
+    ``parts`` row parts (``j0 = C*NSRC*h // parts``), the pairs (i, k) of
+    their slots j0 + i and k = perm[j0 + i], sorted by k, the sentinel slots
+    last with k = -1.  The kernels copy the enter slots in this order, so
+    that neighbouring lanes read neighbouring row elements.  Made once per
+    graph, ``perm`` version and part count, kept on the graph."""
+    key = (parts, g.perm._version)
+    cached = g.__dict__.setdefault("_gather_plan", {})
+    if cached.get(key) is not None and cached[key][0] is g.perm:
+        return cached[key][1]
+    c, nsrc, _, _, ndpos = _dims(g)
+    cs = c * nsrc
+    perm = g.perm.detach().cpu().long()
+    out = torch.empty((cs, 2), dtype=torch.int32)
+    for h in range(parts):
+        j0, j1 = cs * h // parts, cs * (h + 1) // parts
+        k = perm[j0:j1]
+        valid = k < c * ndpos
+        order = torch.argsort(torch.where(valid, k, c * ndpos), stable=True)
+        out[j0:j1, 0] = order.to(torch.int32)
+        out[j0:j1, 1] = torch.where(valid, k, -1)[order].to(torch.int32)
+    plan_t = out.to(g.perm.device)
+    cached[key] = (g.perm, plan_t)
+    return plan_t
+
+
 def _check_cuda_inputs(obs_virtual: torch.Tensor, g) -> None:
     if obs_virtual.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"obs must be float32 or bfloat16, got "
@@ -395,32 +521,69 @@ def _opt_ptr(x):
 
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {rc}")
+        raise RuntimeError(f"{what} failed: "
+                           + _PLAN_ERRORS.get(rc, f"CUDA error {rc}"))
 
 
-def blocked_den_fwd_cuda(obs_virtual: torch.Tensor, g, leaky: float):
-    """Forward scan kernel; same contract as :func:`blocked_scan_fwd_plain`."""
+@functools.lru_cache(maxsize=None)
+def _scratch(device_index: int, fwd: bool, b: int, c: int, nsrc: int,
+             ndp: int, r: int, rw: int) -> int:
+    plan(device_index, fwd, b, c, nsrc, ndp, r, rw)  # raises without one
+    with torch.cuda.device(device_index):
+        return _library().blocked_den_scratch(int(fwd), b, c, nsrc, ndp, r,
+                                              rw)
+
+
+def _scratch_floats(obs_virtual: torch.Tensor, g, fwd: bool) -> int:
+    dev = obs_virtual.device
+    c, nsrc, ndp = g.w_blocks.shape
+    return _scratch(dev.index if dev.index is not None
+                    else torch.cuda.current_device(), fwd,
+                    obs_virtual.shape[0], c, nsrc, ndp, g.enter_pad,
+                    _wildcard(g)[2])
+
+
+def fwd_scratch_floats(obs_virtual: torch.Tensor, g) -> int:
+    """Floats of scratch :func:`blocked_den_fwd_cuda` takes for these obs
+    on this graph (its plan's)."""
+    return _scratch_floats(obs_virtual, g, True)
+
+
+def bwd_scratch_floats(obs_virtual: torch.Tensor, g) -> int:
+    """Floats of scratch :func:`blocked_den_bwd_cuda` takes."""
+    return _scratch_floats(obs_virtual, g, False)
+
+
+def blocked_den_fwd_cuda(obs_virtual: torch.Tensor, g, leaky: float,
+                         out=None, scratch=None):
+    """Forward scan kernel; same contract as :func:`blocked_scan_fwd_plain`.
+    ``out`` = (logz, alphas, cs) and ``scratch`` (``fwd_scratch_floats``
+    floats) may be given, as views into a larger allocation, so that a
+    caller can check what the kernel writes around them."""
     _check_cuda_inputs(obs_virtual, g)
     lib = _library()
     b, t, v = obs_virtual.shape
     c, nsrc, ndp = g.w_blocks.shape
     dev = obs_virtual.device
     f32 = torch.float32
-    alphas = torch.empty((t, b, v), dtype=f32, device=dev)
-    cs = torch.empty((t, b), dtype=f32, device=dev)
-    logz = torch.empty((b,), dtype=f32, device=dev)
+    pl = _device_plan(obs_virtual, g, True)
+    logz, alphas, cs = (None,) * 3 if out is None else out
+    alphas = cuda_build.buffer(alphas, (t, b, v), f32, dev, "alphas")
+    cs = cuda_build.buffer(cs, (t, b), f32, dev, "cs")
+    logz = cuda_build.buffer(logz, (b,), f32, dev, "logz")
     gid, vec, rw = _wildcard(g)
-    scratch = torch.empty((lib.blocked_den_fwd_scratch(b, c, nsrc, ndp, rw),),
-                          dtype=f32, device=dev)
+    scratch = cuda_build.buffer(
+        scratch, (fwd_scratch_floats(obs_virtual, g),), f32, dev, "scratch")
     w = _w_rows16(g)
+    gplan = gather_plan(g, pl.row_parts) if pl.part_staged else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.blocked_den_fwd(
             _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
             _ptr(w), _ptr(g.perm), _ptr(g.init_pos),
             _ptr(g.init_virtual), _ptr(g.final_virtual), _opt_ptr(gid),
-            _opt_ptr(vec), float(leaky), b, t, c, nsrc, ndp, g.enter_pad,
-            w.shape[2], rw, _ptr(alphas), _ptr(cs), _ptr(logz),
+            _opt_ptr(vec), _opt_ptr(gplan), float(leaky), b, t, c, nsrc, ndp,
+            g.enter_pad, w.shape[2], rw, _ptr(alphas), _ptr(cs), _ptr(logz),
             _ptr(scratch), ctypes.c_void_p(stream))
     _raise_on(rc, "blocked_den_fwd")
     blocked_den_fwd_cuda.launches += 1
@@ -431,8 +594,11 @@ blocked_den_fwd_cuda.launches = 0
 
 
 def blocked_den_bwd_cuda(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
-                         cs: torch.Tensor, gbar: torch.Tensor) -> torch.Tensor:
-    """Adjoint scan kernel; same contract as :func:`blocked_scan_bwd_plain`."""
+                         cs: torch.Tensor, gbar: torch.Tensor, out=None,
+                         scratch=None) -> torch.Tensor:
+    """Adjoint scan kernel; same contract as :func:`blocked_scan_bwd_plain`.
+    ``out`` (the gradient) and ``scratch`` (``bwd_scratch_floats`` floats)
+    may be given, as for the forward."""
     _check_cuda_inputs(obs_virtual, g)
     lib = _library()
     b, t, v = obs_virtual.shape
@@ -442,22 +608,22 @@ def blocked_den_bwd_cuda(obs_virtual: torch.Tensor, g, alphas: torch.Tensor,
             or not alphas.is_contiguous() or not cs.is_contiguous()):
         raise ValueError("alphas/cs do not match obs")
     gbar = gbar.to(torch.float32).contiguous()
-    grad = torch.empty_like(obs_virtual)
-    splits = _bwd_splits(dev.index if dev.index is not None
-                         else torch.cuda.current_device(), b, c, nsrc, ndp)
+    grad = cuda_build.buffer(out, (b, t, v), obs_virtual.dtype, dev, "out")
+    pl = _device_plan(obs_virtual, g, False)
     gid, vec, rw = _wildcard(g)
-    scratch = torch.empty(
-        (lib.blocked_den_bwd_scratch(b, c, nsrc, ndp, splits, rw),),
-        dtype=torch.float32, device=dev)
+    scratch = cuda_build.buffer(
+        scratch, (bwd_scratch_floats(obs_virtual, g),), torch.float32, dev,
+        "scratch")
     w = _w_rows16(g)
+    gplan = gather_plan(g, pl.row_parts) if pl.part_staged else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.blocked_den_bwd(
             _ptr(obs_virtual), int(obs_virtual.dtype == torch.bfloat16),
             _ptr(w), _ptr(g.perm), _ptr(g.perm_inv),
             _ptr(g.final_virtual), _ptr(alphas), _ptr(cs), _ptr(gbar),
-            _opt_ptr(gid), _opt_ptr(vec), b, t, c, nsrc, ndp, g.enter_pad,
-            w.shape[2], splits, rw, _ptr(grad), _ptr(scratch),
+            _opt_ptr(gid), _opt_ptr(vec), _opt_ptr(gplan), b, t, c, nsrc, ndp,
+            g.enter_pad, w.shape[2], rw, _ptr(grad), _ptr(scratch),
             ctypes.c_void_p(stream))
     _raise_on(rc, "blocked_den_bwd")
     blocked_den_bwd_cuda.launches += 1

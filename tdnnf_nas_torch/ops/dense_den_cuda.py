@@ -362,24 +362,32 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed with CUDA error {rc}")
 
 
-def _scratch(lib, pl: DensePlan, b: int, s: int, dev) -> torch.Tensor:
-    return torch.empty((lib.dense_den_scratch(b, s, pl.n_out, pl.n_depth),),
-                       dtype=torch.float32, device=dev)
+def scratch_floats(obs_log_state: torch.Tensor) -> int:
+    """Floats of scratch either kernel takes for these obs (its plan's)."""
+    b, _, s = obs_log_state.shape
+    pl = _device_plan(obs_log_state.device, b, s)
+    return _library().dense_den_scratch(b, s, pl.n_out, pl.n_depth)
 
 
 def dense_den_fwd_cuda(obs_log_state: torch.Tensor, trans: torch.Tensor,
-                       init: torch.Tensor, final: torch.Tensor, leaky: float):
-    """Forward scan kernel; same contract as :func:`dense_scan_fwd_plain`."""
+                       init: torch.Tensor, final: torch.Tensor, leaky: float,
+                       out=None, scratch=None):
+    """Forward scan kernel; same contract as :func:`dense_scan_fwd_plain`.
+    ``out`` = (logz, alphas, cs) and ``scratch`` (``scratch_floats``
+    floats) may be given, as views into a larger allocation, so that a
+    caller can check what the kernel writes around them."""
     _check_cuda_inputs(obs_log_state, trans=trans, init=init, final=final)
     lib = _library()
     b, t, s = obs_log_state.shape
     dev = obs_log_state.device
     f32 = torch.float32
     pl = _device_plan(dev, b, s)
-    alphas = torch.empty((t, b, s), dtype=f32, device=dev)
-    cs = torch.empty((t, b), dtype=f32, device=dev)
-    logz = torch.empty((b,), dtype=f32, device=dev)
-    scratch = _scratch(lib, pl, b, s, dev)
+    logz, alphas, cs = (None,) * 3 if out is None else out
+    alphas = cuda_build.buffer(alphas, (t, b, s), f32, dev, "alphas")
+    cs = cuda_build.buffer(cs, (t, b), f32, dev, "cs")
+    logz = cuda_build.buffer(logz, (b,), f32, dev, "logz")
+    scratch = cuda_build.buffer(scratch, (scratch_floats(obs_log_state),), f32, dev,
+                     "scratch")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.dense_den_fwd(
@@ -396,9 +404,12 @@ dense_den_fwd_cuda.launches = 0
 
 def dense_den_bwd_cuda(obs_log_state: torch.Tensor, trans: torch.Tensor,
                        final: torch.Tensor, alphas: torch.Tensor,
-                       cs: torch.Tensor, gbar: torch.Tensor) -> torch.Tensor:
+                       cs: torch.Tensor, gbar: torch.Tensor, out=None,
+                       scratch=None) -> torch.Tensor:
     """Adjoint scan kernel; same contract as :func:`dense_scan_bwd_plain`.
-    It reads the forward's contiguous ``trans`` with each tile transposed."""
+    It reads the forward's contiguous ``trans`` with each tile transposed.
+    ``out`` (the gradient) and ``scratch`` may be given, as for the
+    forward."""
     _check_cuda_inputs(obs_log_state, trans=trans, final=final)
     lib = _library()
     b, t, s = obs_log_state.shape
@@ -412,8 +423,9 @@ def dense_den_bwd_cuda(obs_log_state: torch.Tensor, trans: torch.Tensor,
     if gbar.shape != (b,) or gbar.device != dev:
         raise ValueError(f"gbar must be a [{b}] tensor on {dev}")
     pl = _device_plan(dev, b, s)
-    grad = torch.empty_like(obs_log_state)
-    scratch = _scratch(lib, pl, b, s, dev)
+    grad = cuda_build.buffer(out, (b, t, s), f32, dev, "out")
+    scratch = cuda_build.buffer(scratch, (scratch_floats(obs_log_state),), f32, dev,
+                     "scratch")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.dense_den_bwd(

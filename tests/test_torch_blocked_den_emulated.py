@@ -9,9 +9,15 @@ tolerances: logZ within 1e-3, the obs gradient within 1e-3 (float32) and
 1e-2 (bf16) of its largest entry, alphas within rtol 1e-3.
 """
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from tdnnf_nas_tpu.ops import fwdbwd as jfwd
 
 from tdnnf_nas_torch import graphs as tgraphs
 from tdnnf_nas_torch.graphs.den_graph import random_blocked_graph
@@ -146,3 +152,117 @@ def test_emulated_scans_refuse_wildcard():
     g = BlockedDenGraph.from_host(host, "cpu")
     with pytest.raises(ValueError, match="at most one group"):
         bdc.blocked_scan_fwd_emulated(torch.rand(1, 3, 16), g, 0.1)
+
+
+def _sequential_gather(alpha, g):
+    """The kernels' gather from a whole row: each slot's enter slots summed
+    in slot order, then its loop slot; a sentinel slot takes its loop slot
+    alone."""
+    c, nsrc, ndp = g.w_blocks.shape
+    r = g.enter_pad
+    ndpos = (ndp - nsrc) // r
+    j = torch.arange(c * nsrc)
+    cj = j // nsrc
+    x = alpha[:, cj * ndp + r * ndpos + (j - cj * nsrc)]
+    k = g.perm.long()
+    valid = k < c * ndpos
+    kc = torch.where(valid, k // ndpos, 0)
+    base = kc * ndp + (torch.where(valid, k, 0) - kc * ndpos)
+    acc = alpha[:, base]
+    for i in range(1, r):
+        acc = acc + alpha[:, base + i * ndpos]
+    return torch.where(valid, acc + x, x)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 16])
+@pytest.mark.parametrize("groups", [0, 1])
+def test_part_staged_gather_is_the_whole_row_gather(parts, groups):
+    """A row staged part by part (rows past shared memory) through the
+    host-built gather plan gathers the same bits as the row staged whole;
+    the plan holds each of a part's slots once, sorted by perm, sentinels
+    last; what the parts stage is each enter and loop slot of the row at
+    most once (perm is injective); both gathers hold the plain gather to
+    float32 rounding."""
+    rng = np.random.RandomState(4)
+    g = BlockedDenGraph.from_host(
+        random_blocked_graph(rng, 3, 45, 21, 4, 30, groups=groups), "cpu")
+    alpha = torch.tensor(rng.rand(5, g.w_blocks.shape[0]
+                                  * g.w_blocks.shape[2]).astype(np.float32))
+    got = bdc.gather_parts_emulated(alpha, g, parts)
+    assert torch.equal(got, _sequential_gather(alpha, g))
+    torch.testing.assert_close(got, bdc._gather_beta(alpha, g), rtol=1e-6,
+                               atol=0.0)
+    c, nsrc, ndp = g.w_blocks.shape
+    cs = c * nsrc
+    plan = bdc.gather_plan(g, parts)
+    assert plan.shape == (cs, 2) and plan.dtype == torch.int32
+    assert bdc.gather_plan(g, parts) is plan  # made once per graph
+    staged = []
+    for h in range(parts):
+        j0, j1 = cs * h // parts, cs * (h + 1) // parts
+        i, k = plan[j0:j1, 0].long(), plan[j0:j1, 1].long()
+        # each of the part's slots once, the valid ones by ascending perm
+        assert torch.equal(torch.sort(i).values, torch.arange(j1 - j0))
+        kv = k[k >= 0]
+        assert torch.equal(kv, torch.sort(kv).values)
+        assert bool((k[len(kv):] == -1).all())
+        assert torch.equal(k, torch.where(g.perm[j0:j1][i] < c * (
+            (ndp - nsrc) // g.enter_pad), g.perm[j0:j1][i], -1).long())
+        staged.append(bdc.part_stage_rows(g, j0, j1, plan))
+    staged = torch.cat(staged)
+    staged = staged[staged >= 0]
+    assert len(torch.unique(staged)) == len(staged)
+    assert int(staged.max()) < c * ndp
+
+
+# the reference's own bar for its kernels against the XLA core
+# (tests/test_pallas_fwdbwd.py): atol 2e-5 on logZ and the obs gradient
+_CORE = {
+    "plain": (4, 7, lambda rng: random_blocked_graph(rng, 2, 70, 40, 3, 50)),
+    "wildcard": (4, 7, lambda rng: random_blocked_graph(
+        rng, 2, 60, 30, 3, 40, groups=1)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _core_case(name):
+    """(graph, obs, gbar, JAX's logZ and obs gradient) of ``_CORE[name]``:
+    prob-space obs through ``_blocked_score_core``, leaky 0.1."""
+    b, t, make = _CORE[name]
+    rng = np.random.RandomState(0)
+    host = make(rng)
+    logits = rng.randn(b, t, host.num_pdfs).astype(np.float32) * 2
+    obs = np.exp(np.maximum(logits - logits.max(-1, keepdims=True), -30.0))
+    obs_v = np.ascontiguousarray(obs[:, :, host.pdf_virtual])
+    gbar = rng.rand(b).astype(np.float32) + 0.5
+
+    def core(o):
+        opt = (lambda x: None if x is None else jnp.asarray(x))
+        return jfwd._blocked_score_core(
+            o, jnp.asarray(host.w_blocks), jnp.asarray(host.perm),
+            jnp.asarray(host.perm_inv), jnp.asarray(host.init_pos),
+            jnp.asarray(host.init_virtual), jnp.asarray(host.final_virtual),
+            opt(host.bcast_sel), opt(host.bcast_vec), 0.1, host.enter_pad)
+
+    zj, vjp = jax.vjp(core, jnp.asarray(obs_v))
+    gj, = vjp(jnp.asarray(gbar))
+    g = BlockedDenGraph.from_host(host, "cpu")
+    return (g, torch.tensor(obs_v), torch.tensor(gbar), np.asarray(zj),
+            np.asarray(gj))
+
+
+@pytest.mark.parametrize("bwd_splits", [1, 2, 3])
+@pytest.mark.parametrize("fwd_splits", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(_CORE))
+def test_emulated_split_scans_match_jax_core(name, fwd_splits, bwd_splits):
+    """The kernels' arithmetic with the forward's product split over its
+    depth (the splits' partial products summed in order, the wildcard term
+    in split 0, then times obs) and the adjoint's over d, against JAX's
+    ``_blocked_score_core`` and its custom VJP."""
+    g, obs_v, gbar, zj, gj = _core_case(name)
+    ze, ae, ce = bdc.blocked_scan_fwd_emulated(obs_v, g, 0.1,
+                                               splits=fwd_splits)
+    ge = bdc.blocked_scan_bwd_emulated(obs_v, g, ae, ce, gbar,
+                                       splits=bwd_splits)
+    np.testing.assert_allclose(ze.numpy(), zj, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(ge.numpy(), gj, rtol=0, atol=2e-5)

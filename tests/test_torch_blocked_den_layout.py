@@ -41,3 +41,24 @@ def test_phase_tool_instruments_the_kernels(variant):
     out = blocked_den_phases.instrumented_source(src, variant)
     assert out.count("%globaltimer") == 3  # every barrier, both kernels
     assert "phases_read" in out
+
+
+# V = C * (R * NDPOS + NSRC) of the dens chip_smoke.py holds the blocked
+# pair to (its [den fwd] lines), and their GFLOP at one decimal
+_DEN_V_GFLOP = {"flagship": (18830, 63.5), "b16": (14568, 11.2),
+                "b48": (4850, 5.1), "pm1": (61468, 215.5),
+                "ctx": (58044, 118.4)}
+
+
+@pytest.mark.parametrize("shape", sorted(_DEN_V_GFLOP))
+def test_phase_tool_shapes_match_the_dens(shape):
+    """Each of the phase tool's shapes has the V and the product work of
+    the den it stands for, and the instrumented kernels take it."""
+    b, t, c, nsrc, ndpos, r, _, groups = blocked_den_phases.SHAPES[shape]
+    v, gflop = _DEN_V_GFLOP[shape]
+    ndp = r * ndpos + nsrc
+    assert c * ndp == v
+    flops = 2.0 * b * (c * nsrc * ndp + groups * v) * (t - 1)
+    assert round(flops / 1e9, 1) == gflop
+    src = blocked_den_phases.instrumented_source(bdc._SRC.read_text(), "base")
+    assert "phases_read" in src

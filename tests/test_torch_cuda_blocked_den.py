@@ -65,6 +65,96 @@ def test_kernels_match_plain_wildcard(cuda, shape, groups, obs_dtype):
     _match_plain(cuda, shape, obs_dtype, groups=groups)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("obs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,want", [
+    # (B, T, C, NSRC, NDPOS, R, P), wildcard groups, and what the plan
+    # must pick there (forward, adjoint): (tile rows, splits > 1, rows
+    # staged part by part).  LHUC's B = 16 den: 16-row tiles, the adjoint
+    # split over d; the planted table's den at B = 48, T = 24: 32 tiles,
+    # the forward split too; phase 16's pm1 contender at B = 48 (V = 58,044 > 51,196
+    # floats, a wildcard group): rows staged part by part (the forward not
+    # split: 378 tiles are three waves already); the same at B = 16
+    ((16, 50, 6, 492, 484, 4, 6034), 0, ((16, False, False),
+                                         (16, True, False))),
+    ((48, 24, 2, 477, 487, 4, 430), 0, ((64, True, False),
+                                        (64, True, False))),
+    ((48, 40, 21, 544, 555, 4, 430), 1, ((64, False, True),
+                                         (64, True, True))),
+    ((16, 5, 21, 544, 555, 4, 430), 1, ((16, False, True),
+                                        (16, True, True))),
+])
+def test_kernels_match_plain_at_the_planned_shapes(cuda, shape, groups,
+                                                   want, obs_dtype):
+    """The shapes the plan redesigns for: the plan's choices (the adjoint's
+    W copies evict_first where rows are staged by part and W does not fit
+    L2), then the kernels against the plain scans as in
+    test_kernels_match_plain."""
+    b, t, c, nsrc, ndpos, r, _ = shape
+    ndp = r * ndpos + nsrc
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    w_past_l2 = c * nsrc * (ndp + -ndp % 4) * 4 > l2
+    for fwd, (rows, split, part) in zip((True, False), want):
+        pl = bdc.plan(0, fwd, b, c, nsrc, ndp, r, groups)
+        assert (pl.tile_rows, pl.splits > 1, pl.part_staged) == (
+            rows, split, part), (fwd, pl)
+        assert pl.w_evict_first == (not fwd and part and w_past_l2), (
+            fwd, pl)
+    _match_plain(cuda, shape, obs_dtype, groups=groups)
+
+
+@pytest.mark.cuda
+def test_flagship_plan_is_unsplit(cuda):
+    """The flagship den at B = 64 keeps its design: 64-row tiles, no
+    forward split, rows staged whole, no L2 hint."""
+    pl = bdc.plan(0, True, 64, 7, 538, 2690, 4, 0)
+    assert (pl.tile_rows, pl.splits, pl.part_staged, pl.w_evict_first) == (
+        64, 1, False, False)
+
+
+@pytest.mark.cuda
+def test_buffers_given_by_the_caller(cuda):
+    """``out=``/``scratch=`` views into larger buffers: the same bits as
+    the wrapper's own allocations, and nothing written around them."""
+    rng = np.random.RandomState(2)
+    b, t, p = 5, 6, 40
+    g = BlockedDenGraph.from_host(
+        random_blocked_graph(rng, 3, 45, 21, 2, p, groups=1), cuda)
+    obs = torch.rand(b, t, p, device=cuda).index_select(
+        -1, g.pdf_virtual).contiguous()
+    gbar = torch.rand(b, device=cuda) + 0.5
+    z, al, cs = bdc.blocked_den_fwd_cuda(obs, g, 0.1)
+    gr = bdc.blocked_den_bwd_cuda(obs, g, al, cs, gbar)
+
+    def banded(n, dtype):
+        size = torch.empty((), dtype=dtype).element_size()
+        buf = torch.full((2048 + n * size,), 0xA5, dtype=torch.uint8,
+                         device=cuda)
+        return buf, buf[1024:1024 + n * size].view(dtype)
+
+    bufs = {k: banded(n, dt) for k, n, dt in (
+        ("logz", b, torch.float32), ("alphas", t * b * obs.shape[2],
+                                     torch.float32),
+        ("cs", t * b, torch.float32), ("grad", obs.numel(), torch.float32),
+        ("fs", bdc.fwd_scratch_floats(obs, g), torch.float32),
+        ("bs", bdc.bwd_scratch_floats(obs, g), torch.float32))}
+    z2, al2, cs2 = bdc.blocked_den_fwd_cuda(
+        obs, g, 0.1, out=(bufs["logz"][1], bufs["alphas"][1].view(al.shape),
+                          bufs["cs"][1].view(cs.shape)),
+        scratch=bufs["fs"][1])
+    gr2 = bdc.blocked_den_bwd_cuda(obs, g, al2, cs2, gbar,
+                                   out=bufs["grad"][1].view(gr.shape),
+                                   scratch=bufs["bs"][1])
+    torch.cuda.synchronize()
+    assert torch.equal(z, z2) and torch.equal(al, al2)
+    assert torch.equal(cs, cs2) and torch.equal(gr, gr2)
+    for name, (buf, _) in bufs.items():
+        assert bool((buf[:1024] == 0xA5).all()), name
+        assert bool((buf[-1024:] == 0xA5).all()), name
+    with pytest.raises(ValueError, match="scratch"):
+        bdc.blocked_den_fwd_cuda(obs, g, 0.1, scratch=bufs["fs"][1][1:])
+
+
 def _match_plain(cuda, shape, obs_dtype, groups):
     b, t, c, nsrc, ndpos, r, p = shape
     rng = np.random.RandomState(0)
