@@ -2262,21 +2262,24 @@ def _flagship_host_setup() -> dict:
     """Phase 1's host set-up (bench.py:113-129) through the port's numpy
     host modules, built by the host worker: the flagship corpus, the
     6,034-pdf left-2 tree and ``prepare_data``'s 4-gram blocked den
-    ({"utts", "phone_seqs", "topo", "tree", "bundle"})."""
+    ({"utts", "phone_seqs", "topo", "tree", "bundle", "tree_seconds": the
+    statistics' and the clustering's})."""
     from tdnnf_nas_torch.graphs import (accumulate_triphone_stats,
                                         build_clustered_triphone_tree)
     from tdnnf_nas_torch.recipes.chain_recipes import prepare_data
 
     num_phones = 46
     utts, phone_seqs, topo = _flagship_corpus()
+    t0 = time.perf_counter()
     stats = accumulate_triphone_stats(
         [u.feats for u in utts], phone_seqs, [u.begins for u in utts],
         num_phones, 3)
     tree = build_clustered_triphone_tree(stats, num_leaves=6034 - num_phones)
+    t_tree = time.perf_counter() - t0
     bundle = prepare_data(utts, phone_seqs, tree, topo, num_phones,
                           phone_lm_order=4, num_extra_lm_states=2000)
     return {"utts": utts, "phone_seqs": phone_seqs, "topo": topo,
-            "tree": tree, "bundle": bundle}
+            "tree": tree, "bundle": bundle, "tree_seconds": t_tree}
 
 
 def _flagship_setup(dev, host_worker):
@@ -2307,7 +2310,8 @@ def _flagship_setup(dev, host_worker):
         host_batches.append(b)
     c, nsrc, ndp = host_den.shape
     print(f"[setup] {time.perf_counter() - t0:.1f} s here, "
-          f"{built['seconds']:.1f} s in the host worker: "
+          f"{built['seconds']:.1f} s in the host worker (tree "
+          f"{built['tree_seconds']:.1f} s): "
           f"pdfs={tree.num_pdfs} "
           f"den_states={host_den.num_states} w_blocks=[{c},{nsrc},{ndp}] "
           f"R={host_den.enter_pad} chunks={len(chunks)} "
@@ -3984,8 +3988,16 @@ def _e2e_phase(torch, dev, gpu):
         print("[e2e run] cut from the smoke sizes: " + ", ".join(
             f"{k} {getattr(sizes, k)} (smoke {getattr(smoke, k)})"
             for k in E2E_CUT), flush=True)
-        res = e2e.main(["all", "--smoke", "--out", out], device=dev,
-                       sizes=sizes)
+        boot, stage = {}, e2e.bootstrap_stage
+
+        def bootstrap(*args, **kwargs):
+            got = stage(*args, **kwargs)
+            boot.update(got[2])
+            return got
+
+        with mock.patch.object(e2e, "bootstrap_stage", bootstrap):
+            res = e2e.main(["all", "--smoke", "--out", out], device=dev,
+                           sizes=sizes)
         files = {}
         for what, name in e2e.Report.FILES.items():
             with open(os.path.join(out, name)) as f:
@@ -4014,7 +4026,8 @@ def _e2e_phase(torch, dev, gpu):
           f"({ref['ab_wer']}); table WER "
           + ", ".join(f"{k} {v['wer']} ({ref['table'][k]})"
                       for k, v in table.items()), flush=True)
-    print(f"[e2e setup] tree {e2e_out['tree_pdfs']} pdfs, den "
+    print(f"[e2e setup] tree {e2e_out['tree_pdfs']} pdfs (GMM ladder "
+          f"{boot['gmm']:.1f} s, tree {boot['tree']:.1f} s), den "
           f"{e2e_out['den_states']} states "
           f"({type(setup.bundle.den_arrays).__name__}), HCLG "
           f"{e2e_out['hclg']['states']} states; model hidden "
@@ -4245,7 +4258,10 @@ def _search_experiments_phase(torch, dev, gpu):
     print("[table] sizes cut from the quick preset's: " + ", ".join(
         f"{k} {getattr(sizes, k)} (quick {was[k]})" for k in TABLE_SMOKE_CUT),
         flush=True)
-    with tempfile.TemporaryDirectory() as out:
+    tree_s = {}
+    with tempfile.TemporaryDirectory() as out, mock.patch.object(
+            spt, "build_clustered_triphone_tree",
+            _timed(spt.build_clustered_triphone_tree, tree_s, "table")):
         res = spt.main(quick=True, out=out, device=dev, sizes=sizes)
         with open(os.path.join(out, spt.FILE)) as f:
             tab = json.load(f)
@@ -4266,7 +4282,8 @@ def _search_experiments_phase(torch, dev, gpu):
            "table: the manual row's params are the manual config's")
     _softmax_rows(res.search.alphas, tab["affine_softmax"], 3, "table")
     ref = docs["table"]
-    print(f"[table] {t_b:.1f} s ({gpu}): tree {res.setup.tree.num_pdfs} pdfs, "
+    print(f"[table] {t_b:.1f} s ({gpu}): tree {res.setup.tree.num_pdfs} pdfs "
+          f"in {tree_s['table']:.1f} s, "
           f"den {bundle.den_fsa.num_states} states; alpha entropy "
           f"{tab['alpha_entropy']} ({ref['alpha_entropy']}); WER "
           + ", ".join(f"{k} {v['wer']} ({ref['table'][k]['wer']})"
@@ -4289,7 +4306,9 @@ def _search_experiments_phase(torch, dev, gpu):
         f"{k} {getattr(sizes, k)} (reference {getattr(full, k)})"
         for k in WER_SMOKE_SIZES), flush=True)
     n0 = _blocked_launches(bdc)
-    with tempfile.TemporaryDirectory() as out:
+    with tempfile.TemporaryDirectory() as out, mock.patch.object(
+            wer, "build_clustered_triphone_tree",
+            _timed(wer.build_clustered_triphone_tree, tree_s, "wer")):
         res = wer.main(["all", "--variant", "sil", "--out", out], device=dev,
                        sizes=sizes)
         names = wer.file_names("sil")
@@ -4312,7 +4331,8 @@ def _search_experiments_phase(torch, dev, gpu):
     _check(stab["table"]["manual_baseline"]["params"] == manual_params(mc),
            "wer: the manual row's params are the manual config's")
     ref, ref_s = docs["wer"], docs["wer_search"]
-    print(f"[wer] {t_c:.1f} s ({gpu}): tree {e2e['tree_pdfs']} pdfs, den "
+    print(f"[wer] {t_c:.1f} s ({gpu}): tree {e2e['tree_pdfs']} pdfs in "
+          f"{tree_s['wer']:.1f} s, den "
           f"{e2e['den_states']} states, HCLG {e2e['hclg_states']} states; "
           f"objf {e2e['train_objf_mmi']}; WER first pass "
           f"{e2e['wer_first_pass_tg']}, 4-gram {e2e['wer_4gram_rescore']}, "
@@ -4336,7 +4356,8 @@ def _search_experiments_phase(torch, dev, gpu):
 # launch-bound phases keep the other cores
 HOST_WORKER_THREADS = 2
 # The longest a phase waits for one of the worker's files: its longest
-# set-up, phase 12's, took 114.6-131.6 s on the card's host
+# set-up, phase 12's, took 79.3 s on the card's host since the tree
+# clustering is vectorised (114.6-138.1 s before)
 HOST_WORKER_WAIT_S = 400.0
 
 

@@ -1,4 +1,4 @@
-"""Numpy copy of ``tdnnf_nas_tpu.graphs.tree_cluster`` (tree builds).
+"""Numpy counterpart of ``tdnnf_nas_tpu.graphs.tree_cluster`` (tree builds).
 
 Likelihood-clustered phonetic-context trees, the ``build_tree.sh``
 equivalent: accumulate diagonal-Gaussian sufficient statistics per seen
@@ -7,12 +7,21 @@ phone, the pair of clusters with the smallest log-likelihood loss until
 the forward-leaf budget is met.  Three context windows share the
 clustering: the biphone (l, p), the left-2 triphone (l2, l1, p) and the
 +-1 triphone (l, p, r) of the reference's ``tri5_7d`` tree.
+
+The statistics and ``_loglike`` are the reference's; the clustering is
+vectorised, not a line-for-line copy of the reference's lazy heap: the
+clusters' statistics and log-likelihoods live in arrays, each phone's
+merge costs in a matrix filled in one pass and refreshed one row at a
+time, with the reference's float operations in its order and its pop
+order, ties included.  ``tests/test_torch_tree_cluster.py`` holds its
+tables equal to the reference's bit for bit (rare-tail pre-merge, exact
+ties, empty phones, float32 statistics), beside the trees of
+``tests/test_torch_cross_triphone.py`` and the drivers' tests.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import heapq
 import math
 from typing import List, Optional, Sequence
 
@@ -75,6 +84,23 @@ def _loglike(n, s, ss):
     d = s.shape[-1]
     return -0.5 * n * (d * math.log(2.0 * math.pi * math.e)
                        + float(np.sum(np.log(var))))
+
+
+def _loglike_rows(n, s, ss):
+    """``_loglike`` of each row of n [K], s [K, D], ss [K, D], bit for bit:
+    the same float operations in the same order (a Python float divides
+    an array in the array's type; numpy sums each row of a C-contiguous
+    array pairwise exactly as it sums a 1-D vector)."""
+    d = s.shape[-1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mean = s / n.astype(np.result_type(s.dtype, 1.0))[:, None]
+        var = np.maximum(
+            ss / n.astype(np.result_type(ss.dtype, 1.0))[:, None]
+            - mean * mean, _VAR_FLOOR)
+        tot = np.log(var).sum(axis=-1).astype(np.float64)
+    out = -0.5 * n * (d * math.log(2.0 * math.pi * math.e) + tot)
+    out[n < 1e-8] = 0.0
+    return out
 
 
 class ClusteredBiphoneTree(BiphoneTree):
@@ -191,51 +217,85 @@ def _cluster_contexts(
             })
             cluster_of[p, c] = cid
 
-    def merge_cost(a, b):
-        la = _loglike(a["n"], a["s"], a["ss"])
-        lb = _loglike(b["n"], b["s"], b["ss"])
-        lab = _loglike(a["n"] + b["n"], a["s"] + b["s"], a["ss"] + b["ss"])
-        return la + lb - lab
+    if not clusters:
+        return np.full(0, -1, np.int64), 0
+    # cluster statistics as arrays in id order, each cluster's
+    # log-likelihood computed once when it is made or grows; a phone's
+    # ids are one range (the loop above appends phone by phone)
+    phone = np.asarray([c["phone"] for c in clusters], np.int64)
+    n = np.asarray([c["n"] for c in clusters], np.float64)
+    s = np.stack([c["s"] for c in clusters])
+    ss = np.stack([c["ss"] for c in clusters])
+    ll = _loglike_rows(n, s, ss)
+    first = np.searchsorted(phone, np.arange(p_count + 1))
+    alive = np.ones(len(clusters), bool)
+    parent = np.arange(len(clusters))
 
-    # priority queue of within-phone candidate merges; entries carry the
-    # version of each endpoint so costs computed against absorbed/updated
-    # clusters are discarded on pop (lazy deletion + staleness check)
-    alive = [True] * len(clusters)
-    version = [0] * len(clusters)
-    by_phone: List[List[int]] = [[] for _ in range(p_count)]
-    for i, c in enumerate(clusters):
-        by_phone[c["phone"]].append(i)
-    heap: List[tuple] = []
+    def merge_costs(a, b):
+        """``la + lb - lab`` of clusters a and b, elementwise over ids."""
+        lab = _loglike_rows(n[a] + n[b], s[a] + s[b], ss[a] + ss[b])
+        return (ll[a] + ll[b]) - lab
+
+    # cost[p][i, j] (i < j, both alive) is the merge cost of the phone's
+    # local clusters i and j, +inf elsewhere.  Every live pair has one
+    # current cost, so the next merge is the least (cost, min id, max id)
+    # over all phones: the pop order of a lazy heap of those tuples, exact
+    # ties included (argmin takes the first minimum in row-major order,
+    # the least (i, j); ``min`` over the phones' bests breaks ties by id)
+    cost = []
     for p in range(p_count):
-        ids = by_phone[p]
-        for i in range(len(ids)):
-            for j in range(i + 1, len(ids)):
-                a, b = ids[i], ids[j]
-                heapq.heappush(heap, (merge_cost(clusters[a], clusters[b]),
-                                      a, b, 0, 0))
+        m = np.full((first[p + 1] - first[p],) * 2, np.inf)
+        i, j = np.triu_indices(len(m), 1)
+        for k in range(0, len(i), 1 << 15):  # 32k pairs a pass
+            ik, jk = i[k:k + (1 << 15)], j[k:k + (1 << 15)]
+            m[ik, jk] = merge_costs(first[p] + ik, first[p] + jk)
+        cost.append(m)
 
+    def phone_best(p):
+        m = cost[p]
+        if np.count_nonzero(alive[first[p]:first[p + 1]]) < 2:
+            return None
+        k = int(np.argmin(m))
+        i, j = divmod(k, m.shape[0])
+        return float(m.flat[k]), int(first[p]) + i, int(first[p]) + j
+
+    best = [phone_best(p) for p in range(p_count)]
     num_alive = len(clusters)
     target = max(num_leaves, p_count)  # >= one forward leaf per phone
-    while num_alive > target and heap:
-        cost, a, b, va, vb = heapq.heappop(heap)
-        if not (alive[a] and alive[b]) or version[a] != va or version[b] != vb:
-            continue
+    while num_alive > target:
+        cands = [t for t in best if t is not None]
+        if not cands:
+            break
+        _, a, b = min(cands)
         # merge b into a
-        ca, cb = clusters[a], clusters[b]
-        ca["n"] += cb["n"]
-        ca["s"] = ca["s"] + cb["s"]
-        ca["ss"] = ca["ss"] + cb["ss"]
+        p = int(phone[a])
+        n[a] = n[a] + n[b]
+        s[a] = s[a] + s[b]
+        ss[a] = ss[a] + ss[b]
+        ll[a] = _loglike_rows(n[a:a + 1], s[a:a + 1], ss[a:a + 1])[0]
         alive[b] = False
-        clusters[b] = None
-        version[a] += 1
+        parent[b] = a
         num_alive -= 1
-        cluster_of[cluster_of == b] = a
-        # refresh candidate merges involving a
-        for o in by_phone[ca["phone"]]:
-            if o != a and alive[o] and clusters[o] is not None:
-                heapq.heappush(heap, (merge_cost(ca, clusters[o]),
-                                      min(a, o), max(a, o),
-                                      version[min(a, o)], version[max(a, o)]))
+        # refresh the pairs of a, drop those of b
+        m, base = cost[p], first[p]
+        m[b - base, :] = np.inf
+        m[:, b - base] = np.inf
+        others = np.flatnonzero(alive[base:first[p + 1]]) + base
+        others = others[others != a]
+        c = merge_costs(a, others)
+        lo = others < a
+        m[others[lo] - base, a - base] = c[lo]
+        m[a - base, others[~lo] - base] = c[~lo]
+        best[p] = phone_best(p)
+
+    # every cell of an absorbed cluster goes to the cluster that absorbed
+    # it, and on to whatever absorbed that one
+    while True:
+        up = parent[parent]
+        if np.array_equal(up, parent):
+            break
+        parent = up
+    cluster_of = np.where(cluster_of >= 0, parent[cluster_of], -1)
 
     # compact ids
     remap = {}
